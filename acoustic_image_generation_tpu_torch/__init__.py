@@ -9,8 +9,9 @@ Subpackages mirror the JAX names:
 dsp       MFCC frontend (plain torch) and the inverse energy map
 ops       hand-written CUDA kernels (``csrc/``), their builder and wrappers
 data      device preprocessing of raw audio/video frames
-models    ResNet50 trunk and the UNetAcResNet generator (eval mode)
-train     the inference half of ``GenerationTask``
+models    ResNet50 trunk (eval and train mode) and the UNetAcResNet generator
+losses    reconstruction, KL and L2 terms
+train     ``GenerationTask``, TF1 Adam and the generation train step
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``. With no GPU and no explicit device they raise; they never

@@ -1,4 +1,5 @@
-"""Load the JAX package's generation variables into the port's modules.
+"""Move the JAX package's generation variables into the port's modules and
+back.
 
 ``load_flax(task, params, batch_stats)`` takes the trees that the JAX
 ``GenerationTask.init_variables`` returns (or a checkpoint's), as nested
@@ -16,7 +17,9 @@ scopes, and the layouts change as follows:
   trunk conv under ``.../conv/kernel``.
 
 Every flax leaf must land on exactly one port tensor and every port tensor
-must be set; anything else raises.
+must be set; anything else raises. The values land in the port's f32
+masters unrounded. ``to_flax(task)`` gives the trees back, as numpy f32,
+so that the two packages' trajectories compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ def _hwio_to_oihw(a):
     return a.transpose(3, 2, 0, 1)
 
 
-def _hwio_to_iohw(a):
+def _oihw_to_hwio(a):
+    return a.transpose(2, 3, 1, 0)
+
+
+def _hwio_to_iohw(a):  # its own inverse
     return a.transpose(2, 3, 0, 1)
 
 
@@ -44,8 +51,21 @@ def _hwio_to_packed(a):
     return a.reshape(kh * kw * ci, co)
 
 
+def _packed_to_hwio(a):
+    return a.reshape(3, 3, a.shape[0] // 9, a.shape[1])
+
+
 def _same(a):
     return a
+
+
+_INVERSE = {
+    _hwio_to_oihw: _oihw_to_hwio,
+    _hwio_to_iohw: _hwio_to_iohw,
+    np.transpose: np.transpose,
+    _hwio_to_packed: _packed_to_hwio,
+    _same: _same,
+}
 
 
 def targets(task: torch.nn.Module):
@@ -112,3 +132,16 @@ def load_flax(task: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> N
     unset = [n for n, t in (*task.named_parameters(), *task.named_buffers()) if id(t) not in covered]
     if unset:
         raise KeyError(f"port tensors with no flax leaf: {unset}")
+
+
+def to_flax(task: torch.nn.Module) -> tuple[dict, dict]:
+    """``(params, batch_stats)`` of ``task`` as nested dicts of numpy f32
+    arrays in the flax layouts: the inverse of ``load_flax``."""
+    trees = {"params": {}, "batch_stats": {}}
+    for tensor, coll, path, fn in targets(task):
+        node = trees[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.array(_INVERSE[fn](value), order="C")
+    return trees["params"], trees["batch_stats"]

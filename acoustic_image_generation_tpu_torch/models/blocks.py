@@ -2,9 +2,9 @@
 
 Counterpart of ``acoustic_image_generation_tpu/models/blocks.py``. The
 stride-1 3x3 conv+ReLU pair of ``ConvConvPool`` always runs through
-``ops.conv_chain`` (the CUDA kernel on the card, its plain version on the
-CPU); module names mirror the flax scopes (``conv_1``, ``conv_2``,
-``pool_2``, ``mean``, ``std``).
+``ops.conv_chain`` (the CUDA kernels on the card, forward and backward,
+their plain versions on the CPU); module names mirror the flax scopes
+(``conv_1``, ``conv_2``, ``pool_2``, ``mean``, ``std``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from acoustic_image_generation_tpu_torch.models.layers import Conv2d, glorot_uniform, minmax_norm
+from acoustic_image_generation_tpu_torch.models.layers import (
+    Conv2d,
+    as_compute,
+    glorot_uniform,
+    minmax_norm,
+)
 from acoustic_image_generation_tpu_torch.ops.conv_chain import conv_chain
 
 POOL_KERNEL = (3, 3)  # the generator's one pool conv: 36x48 -> 12x16
@@ -23,13 +28,14 @@ VAE_SPATIAL = (12, 16)  # the bottleneck the VALID mean/std convs cover
 
 
 class ChainConv(nn.Module):
-    """Parameters of one 3x3 conv of a chain, packed once for the kernel:
-    weight (9*Ci, Co) in the compute dtype, bias (Co,) in f32."""
+    """f32 master parameters of one 3x3 conv of a chain, packed once for
+    the kernel: weight (9*Ci, Co), bias (Co,)."""
 
-    def __init__(self, in_ch, out_ch, *, device=None, dtype=torch.float32):
+    def __init__(self, in_ch, out_ch, *, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty((9 * in_ch, out_ch), device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty((out_ch,), device=device, dtype=torch.float32))
+        f32 = dict(device=device, dtype=torch.float32)
+        self.weight = nn.Parameter(torch.empty((9 * in_ch, out_ch), **f32))
+        self.bias = nn.Parameter(torch.empty((out_ch,), **f32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         k, o = self.weight.shape
@@ -48,7 +54,7 @@ class ConvConvPool(nn.Module):
         self.n = len(filters)
         chans = (in_ch, *filters)
         for i in range(self.n):
-            self.add_module(f"conv_{i + 1}", ChainConv(chans[i], chans[i + 1], device=device, dtype=dtype))
+            self.add_module(f"conv_{i + 1}", ChainConv(chans[i], chans[i + 1], device=device))
         self.pool = pool
         if pool:
             self.add_module(
@@ -59,9 +65,14 @@ class ConvConvPool(nn.Module):
 
     def forward(self, x: torch.Tensor):
         convs = [getattr(self, f"conv_{i + 1}") for i in range(self.n)]
+        # Under autograd the f32 masters go in as they are: conv_chain casts
+        # them inside and returns their grads in f32. Otherwise the cached
+        # cast copies.
+        grad = torch.is_grad_enabled()
         x = conv_chain(
             x.to(self.dtype).contiguous(),
-            [c.weight for c in convs],
+            [c.weight if grad and c.weight.requires_grad else as_compute(c.weight, self.dtype)
+             for c in convs],
             [c.bias for c in convs],
             (True,) * self.n,
         )
@@ -76,7 +87,8 @@ class VaeHead(nn.Module):
     deterministic AE: only the mean conv, min-max normalized per sample.
 
     The noise is ``eps`` when given, else drawn from ``generator``; with
-    neither, ``z = mean``."""
+    neither, ``z = mean``. A train step always passes one of them: JAX
+    samples whenever its ``latent`` rng exists."""
 
     def __init__(self, in_ch, *, embedding=False, device=None, dtype=torch.float32):
         super().__init__()

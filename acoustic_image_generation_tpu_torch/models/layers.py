@@ -2,8 +2,10 @@
 
 Counterpart of ``acoustic_image_generation_tpu/models/layers.py``. Every
 module takes and returns NHWC (the JAX layout); convs run on the NCHW view
-with channels-last memory. Weights live in the compute dtype on the
-module's device, in torch layout:
+with channels-last memory. Parameters are f32 masters on the module's
+device, as flax's ``param_dtype=float32``; each module computes in its
+``dtype`` and casts the masters to it in ``forward`` (``as_compute``). In
+torch layout:
 
 - ``Conv2d``: OIHW weight, bias (flax ``nn.Conv``: HWIO kernel);
 - ``Dense``: ``nn.Linear``, weight (out, in) (flax: (in, out));
@@ -38,6 +40,27 @@ def he_truncated_normal(shape, fan_in: int, generator: torch.Generator) -> torch
     return t * std
 
 
+def as_compute(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The f32 master ``p`` in the compute ``dtype``.
+
+    Where autograd follows ``p`` (grad mode on and ``p`` requires grad) this
+    is a fresh cast, whose gradient flows back to the master in f32.
+    Otherwise one cast copy is kept per master and reused until the master
+    changes (its version counter moves on every in-place write: an optimizer
+    step, ``bridge.load_flax``), so serving does not cast every weight on
+    every request. The copy hangs on the master itself and dies with it."""
+    if p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    hit = getattr(p, "_compute_copy", None)
+    if hit is None or hit[0] != p._version or hit[1].dtype != dtype or hit[1].device != p.device:
+        with torch.inference_mode(False), torch.no_grad():
+            hit = (p._version, p.detach().to(dtype))
+        p._compute_copy = hit
+    return hit[1]
+
+
 def minmax_norm(x: torch.Tensor, dims) -> torch.Tensor:
     """Per-sample min-max onto [0, 1] over ``dims``. No epsilon, as in the
     reference: a constant input gives NaN."""
@@ -52,15 +75,16 @@ class Conv2d(nn.Module):
                  *, device=None, dtype=torch.float32):
         super().__init__()
         kh, kw = kernel_size
+        self.dtype = dtype
         self.stride = stride
         self.padding = padding.upper()
         if self.padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding {padding!r}")
         self.weight = nn.Parameter(
-            torch.empty((out_ch, in_ch, kh, kw), device=device, dtype=dtype)
+            torch.empty((out_ch, in_ch, kh, kw), device=device, dtype=torch.float32)
             .contiguous(memory_format=torch.channels_last)
         )
-        self.bias = nn.Parameter(torch.empty((out_ch,), device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty((out_ch,), device=device, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         o, i, kh, kw = self.weight.shape
@@ -69,11 +93,19 @@ class Conv2d(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_xla(x.to(self.weight.dtype), self.weight, self.bias, self.stride, self.padding)
+        dt = self.dtype
+        return conv2d_xla(
+            x.to(dt), as_compute(self.weight, dt), as_compute(self.bias, dt), self.stride, self.padding
+        )
 
 
 class Dense(nn.Linear):
-    """``tf.layers.dense``: glorot init, zero bias."""
+    """``tf.layers.dense``: glorot init, zero bias; f32 masters, computes in
+    ``dtype``."""
+
+    def __init__(self, in_features, out_features, *, device=None, dtype=torch.float32):
+        super().__init__(in_features, out_features, device=device, dtype=torch.float32)
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if generator is None:  # nn.Linear's constructor; init_params fills it
@@ -84,7 +116,10 @@ class Dense(nn.Linear):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.dtype
+        return torch.nn.functional.linear(
+            x.to(dt), as_compute(self.weight, dt), as_compute(self.bias, dt)
+        )
 
 
 class ConvTransposeTF(nn.Module):
@@ -94,12 +129,13 @@ class ConvTransposeTF(nn.Module):
     def __init__(self, in_ch, out_ch, kernel_size=(2, 2), strides=(2, 2),
                  *, device=None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.strides = tuple(strides)
         self.weight = nn.Parameter(
-            torch.empty((in_ch, out_ch, *kernel_size), device=device, dtype=dtype)
+            torch.empty((in_ch, out_ch, *kernel_size), device=device, dtype=torch.float32)
             .contiguous(memory_format=torch.channels_last)
         )
-        self.bias = nn.Parameter(torch.empty((out_ch,), device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty((out_ch,), device=device, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         i, o, kh, kw = self.weight.shape
@@ -108,4 +144,7 @@ class ConvTransposeTF(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose_tf(x.to(self.weight.dtype), self.weight, self.strides, bias=self.bias)
+        dt = self.dtype
+        return conv_transpose_tf(
+            x.to(dt), as_compute(self.weight, dt), self.strides, bias=as_compute(self.bias, dt)
+        )
