@@ -13,12 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from acoustic_image_generation_tpu_torch.models.layers import (
-    Conv2d,
-    as_compute,
-    glorot_uniform,
-    minmax_norm,
-)
+from acoustic_image_generation_tpu_torch.models.layers import Conv2d, glorot_uniform, minmax_norm
 from acoustic_image_generation_tpu_torch.ops.conv_chain import conv_chain
 
 POOL_KERNEL = (3, 3)  # the generator's one pool conv: 36x48 -> 12x16
@@ -65,14 +60,11 @@ class ConvConvPool(nn.Module):
 
     def forward(self, x: torch.Tensor):
         convs = [getattr(self, f"conv_{i + 1}") for i in range(self.n)]
-        # Under autograd the f32 masters go in as they are: conv_chain casts
-        # them inside and returns their grads in f32. Otherwise the cached
-        # cast copies.
-        grad = torch.is_grad_enabled()
+        # the f32 masters go in as they are: conv_chain casts them inside and
+        # returns their grads in f32
         x = conv_chain(
             x.to(self.dtype).contiguous(),
-            [c.weight if grad and c.weight.requires_grad else as_compute(c.weight, self.dtype)
-             for c in convs],
+            [c.weight for c in convs],
             [c.bias for c in convs],
             (True,) * self.n,
         )

@@ -4,8 +4,7 @@ Counterpart of ``acoustic_image_generation_tpu/models/layers.py``. Every
 module takes and returns NHWC (the JAX layout); convs run on the NCHW view
 with channels-last memory. Parameters are f32 masters on the module's
 device, as flax's ``param_dtype=float32``; each module computes in its
-``dtype`` and casts the masters to it in ``forward`` (``as_compute``). In
-torch layout:
+``dtype`` and casts the masters to it in ``forward``. In torch layout:
 
 - ``Conv2d``: OIHW weight, bias (flax ``nn.Conv``: HWIO kernel);
 - ``Dense``: ``nn.Linear``, weight (out, in) (flax: (in, out));
@@ -38,27 +37,6 @@ def he_truncated_normal(shape, fan_in: int, generator: torch.Generator) -> torch
     t = torch.empty(shape)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t * std
-
-
-def as_compute(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The f32 master ``p`` in the compute ``dtype``.
-
-    Where autograd follows ``p`` (grad mode on and ``p`` requires grad) this
-    is a fresh cast, whose gradient flows back to the master in f32.
-    Otherwise one cast copy is kept per master and reused until the master
-    changes (its version counter moves on every in-place write: an optimizer
-    step, ``bridge.load_flax``), so serving does not cast every weight on
-    every request. The copy hangs on the master itself and dies with it."""
-    if p.dtype == dtype:
-        return p
-    if torch.is_grad_enabled() and p.requires_grad:
-        return p.to(dtype)
-    hit = getattr(p, "_compute_copy", None)
-    if hit is None or hit[0] != p._version or hit[1].dtype != dtype or hit[1].device != p.device:
-        with torch.inference_mode(False), torch.no_grad():
-            hit = (p._version, p.detach().to(dtype))
-        p._compute_copy = hit
-    return hit[1]
 
 
 def minmax_norm(x: torch.Tensor, dims) -> torch.Tensor:
@@ -95,7 +73,7 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         return conv2d_xla(
-            x.to(dt), as_compute(self.weight, dt), as_compute(self.bias, dt), self.stride, self.padding
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding
         )
 
 
@@ -117,9 +95,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return torch.nn.functional.linear(
-            x.to(dt), as_compute(self.weight, dt), as_compute(self.bias, dt)
-        )
+        return torch.nn.functional.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class ConvTransposeTF(nn.Module):
@@ -145,6 +121,4 @@ class ConvTransposeTF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return conv_transpose_tf(
-            x.to(dt), as_compute(self.weight, dt), self.strides, bias=as_compute(self.bias, dt)
-        )
+        return conv_transpose_tf(x.to(dt), self.weight.to(dt), self.strides, bias=self.bias.to(dt))

@@ -41,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from acoustic_image_generation_tpu_torch.models.layers import as_compute, he_truncated_normal
+from acoustic_image_generation_tpu_torch.models.layers import he_truncated_normal
 from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_stats
 from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_same_fixed_pad, conv2d_xla
 
@@ -126,7 +126,7 @@ class ConvBN(nn.Module):
             self.weight.copy_(he_truncated_normal(self.weight.shape, i * kh * kw, generator))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        w = as_compute(self.weight, self.dtype)
+        w = self.weight.to(self.dtype)
         x = x.to(self.dtype)
         if train and self.fused_stats:
             y, mean, var = conv1x1_batch_stats(x.contiguous(), w.reshape(w.shape[0], -1).t())

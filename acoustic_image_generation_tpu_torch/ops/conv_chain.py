@@ -33,7 +33,8 @@ from acoustic_image_generation_tpu_torch.ops import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGRAD_PIXELS = 32  # the weight-grad kernels walk pixels in steps of this many
-WGRAD_BLOCKS = 4 * 132  # blocks the weight grad aims for: 4 per SM of an H100
+WGRAD_BLOCKS = 4 * 132  # blocks the bf16 weight grad aims for: 4 per SM of an H100
+WGRAD_F32_PIXELS = 2048  # pixels of one f32 weight-grad slice
 
 
 def pack_hwio(w: torch.Tensor) -> torch.Tensor:
@@ -87,25 +88,27 @@ def conv_chain_reference(x, weights, biases, relu):
     return _reference_layers(x, weights, biases, relu)[-1]
 
 
-def conv_chain_backward_reference(x, acts, weights, gy, relu, needs_input_grad=True):
-    """Plain version of the backward: ``torch.nn.grad`` convolutions in f32,
-    with the cotangent rounded to the compute dtype before every product.
+def conv_chain_backward_reference(x, acts, weights, gy, relu, needs_input_grad=True,
+                                  acc=torch.float32):
+    """Plain version of the backward: ``torch.nn.grad`` convolutions in
+    ``acc`` (f32; f64 for a witness of the f32 path), with the cotangent
+    rounded to the compute dtype before every product.
 
     ``x`` the chain's input, ``acts[i]`` layer i's output (both in the
     compute dtype), ``weights[i]`` packed, ``gy`` the cotangent of the
     chain's output. Returns ``(dx in the compute dtype or None, dW (9*Ci,
-    Co) f32 per layer, db f32 per layer)``."""
+    Co) per layer, db per layer)``, dW and db in ``acc``."""
     dt = x.dtype
-    g = gy.to(dt).float()
+    g = gy.to(dt).to(acc)
     k = len(weights)
     dws, dbs = [None] * k, [None] * k
     for i in range(k - 1, -1, -1):
         if relu[i]:
             g = torch.where(acts[i] > 0, g, 0.0)
-        w = weights[i].to(dt).float()
+        w = weights[i].to(dt).to(acc)
         ci, co = w.shape[0] // 9, w.shape[1]
-        prev = (x if i == 0 else acts[i - 1]).to(dt).float().permute(0, 3, 1, 2)
-        gq = g.to(dt).float().permute(0, 3, 1, 2)
+        prev = (x if i == 0 else acts[i - 1]).to(dt).to(acc).permute(0, 3, 1, 2)
+        gq = g.to(dt).to(acc).permute(0, 3, 1, 2)
         dw = torch.nn.grad.conv2d_weight(prev, (co, ci, 3, 3), gq, padding=1)
         dws[i] = dw.permute(2, 3, 1, 0).reshape(9 * ci, co)
         dbs[i] = g.sum(dim=(0, 1, 2))
@@ -193,11 +196,15 @@ def _forward_cuda(x, weights, biases, relu) -> list[torch.Tensor]:
 
 
 def wgrad_splits(m: int, ci: int, co: int, dtype: torch.dtype) -> int:
-    """Pixel slices of the weight grad: enough blocks to fill the card,
-    each slice at least 64 steps of ``WGRAD_PIXELS`` pixels deep. The bf16
+    """Pixel slices of the weight grad. bf16: enough blocks to fill the
+    card, each slice at least 64 steps of ``WGRAD_PIXELS`` pixels deep (the
     kernel tiles the rows of a Ci that is not a multiple of 8 flat over
-    (tap, channel); the others one tap at a time."""
-    flat = dtype == torch.bfloat16 and ci % 8 != 0
+    (tap, channel), the others one tap at a time). f32: slices of
+    ``WGRAD_F32_PIXELS`` pixels, so that each thread's serial f32 sum stays
+    short; its rounding grows with its length."""
+    if dtype == torch.float32:
+        return max(1, -(-m // WGRAD_F32_PIXELS))
+    flat = ci % 8 != 0
     tiles = (-(-9 * ci // 64) if flat else 9 * -(-ci // 64)) * -(-co // 64)
     most = max(1, m // (64 * WGRAD_PIXELS))
     return max(1, min(-(-WGRAD_BLOCKS // tiles), most))

@@ -76,8 +76,7 @@ class GenerationConfig:
 
 
 class GenerationTask(nn.Module):
-    def __init__(self, config: GenerationConfig = GenerationConfig(), *, device=None,
-                 fused_bn_stats: bool = False):
+    def __init__(self, config: GenerationConfig = GenerationConfig(), *, device=None):
         super().__init__()
         if config.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute dtype {config.compute_dtype!r}")
@@ -90,8 +89,7 @@ class GenerationTask(nn.Module):
         blocks = ((64, u[0], 1), (128, u[1], 2), (256, u[2], 2), (512, u[3], 1))
         kw = dict(device=self.device, dtype=self.dtype)
         self.resnet = ResNet50(
-            blocks, freeze_trunk=True, trunk_bn_frozen=config.trunk_bn == "frozen",
-            fused_bn_stats=fused_bn_stats, **kw,
+            blocks, freeze_trunk=True, trunk_bn_frozen=config.trunk_bn == "frozen", **kw
         )
         self.generator = UNetAcResNet(skips=config.num_skip_conn, embedding=config.ae, **kw)
         labels = self.param_labels()

@@ -9,8 +9,9 @@ imports nothing of JAX. Phases, each fatal on failure:
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it (serving: 96 frames; training: 768 frames), and
-   time kernel, plain version and a library yardstick with CUDA events;
+   shapes its path gives it (serving: 96 frames; training: 768 frames; the
+   f32 backward against a float64 witness), and time kernel, plain version
+   and a library yardstick with CUDA events;
 3. serve full-width bf16 requests (ResNet50 3/4/6/3 + UNetAcResNet 1-skip
    VAE, random weights from the seed, 96 frames each) through
    ``GenerationService``, with the kernels' launch counts reset just before
@@ -26,7 +27,8 @@ imports nothing of JAX. Phases, each fatal on failure:
 6. two f32 train steps on 2 frames on CUDA and on the CPU, from the same
    weights and noise;
 7. the trunk's train-mode forward with ``fused_bn_stats`` (the
-   ``matmul_stats`` kernel) against the same trunk without it, 96 frames;
+   ``matmul_stats`` kernel) against the same trunk without it, 96 frames,
+   and each bf16 fused unit against its plain version;
 8. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -58,13 +60,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 MFCC_TOL = dict(rtol=2e-3, atol=2e-3)
 CHAIN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 PATH_TOL = 1e-3  # CUDA vs CPU serving output, f32, sigmoid scale
-# Backward grads against the plain backward, relative to each tensor's
-# largest entry. f32: the weight grads sum 1.3 M pixels at 768 frames, in
-# another order than cuDNN (split into slices, added with atomics): 1.3e-4
-# measured for layer1. bf16 also where a different f32 cotangent rounds to
-# another bf16 operand.
-GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
-STATS_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2**-7, atol=2e-2)}
+# Backward grads, as the largest error over each tensor's largest entry,
+# per tensor kind. bf16 against the plain backward (f32 arithmetic): a
+# cotangent that differs in its last f32 bits can round to another bf16
+# operand (readings on an H100 at 768 frames: dx 3.3e-3, dW 2.2e-4, db 1.5e-6).
+# f32 against a float64 witness (the plain backward in f64 on the same
+# operands): the kernels' IEEE f32 sums, each weight-grad slice 2048 pixels
+# long (readings: dx 1.3e-6, dW 1.5e-6, db 1.1e-6; cuDNN's own f32 dW
+# reads 1.5e-4). Each limit must stay below what a TF32 run (cuDNN, TF32
+# on) reads: dx 3.9e-4, dW 9.2e-4 at the least.
+GRAD_TOL = {torch.bfloat16: dict(dx=1e-2, dW=1e-3, db=1e-5),
+            torch.float32: dict(dx=1e-5, dW=1e-5, db=1e-5)}
 
 
 def log(*parts) -> None:
@@ -218,7 +224,7 @@ def rel_err(got, want) -> float:
 
 
 def abs_err(got, want) -> float:
-    got, want = got.float(), want.float()
+    got, want = got.double(), want.double()
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
@@ -226,10 +232,29 @@ def abs_err(got, want) -> float:
     return float((got - want).abs().max())
 
 
+def grad_errors(got, want, needs_dx) -> dict:
+    """Relative error (``rel_err``) of every grad of a chain's backward."""
+    k = len(want[1])
+    pairs = {f"dW{i}": (got[1][i], want[1][i]) for i in range(k)}
+    pairs.update({f"db{i}": (got[2][i], want[2][i]) for i in range(k)})
+    if needs_dx:
+        pairs["dx"] = (got[0], want[0])
+    return {name: rel_err(*pair) for name, pair in pairs.items()}
+
+
+def worst_by_kind(errs: dict) -> dict:
+    """{"dW": .., "db": .., "dx": ..}: the largest error of each kind."""
+    out = {}
+    for name, e in errs.items():
+        out[name[:2]] = max(out.get(name[:2], 0.0), e)
+    return out
+
+
 def check_conv_chain_backward(cc, task) -> dict:
-    """The backward kernels against the plain backward at the training
-    shapes, both dtypes, non-zero biases; times in the task's dtype against
-    autograd's backward of the cuDNN chain."""
+    """The backward kernels at the training shapes, both dtypes, non-zero
+    biases: bf16 against the plain backward, f32 against a float64 witness
+    beside cuDNN's f32 and TF32 readings of the same grads; times in the
+    task's dtype against autograd's backward of the cuDNN chain."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -244,23 +269,42 @@ def check_conv_chain_backward(cc, task) -> dict:
             wd = [w.to(dt) for w in ws]
             acts = cc._forward_cuda(x, wd, bs, relu)
             gy = torch.randn(acts[-1].shape, generator=g, device="cuda").to(dt)
-            got = cc.conv_chain_backward(x, acts, wd, gy, relu, needs_dx)
-            want = cc.conv_chain_backward_reference(x, acts, wd, gy, relu, needs_dx)
-            pairs = {f"dW{i}": (got[1][i], want[1][i]) for i in range(len(ws))}
-            pairs.update({f"db{i}": (got[2][i], want[2][i]) for i in range(len(ws))})
-            if needs_dx:
-                pairs["dx"] = (got[0], want[0])
-            errs = {k: rel_err(*v) for k, v in pairs.items()}
-            worst = max(errs.values())
-            log(f"check conv_chain_backward {name} {str(dt)[6:]} {tuple(shape)}: relative errors "
-                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {GRAD_TOL[dt]})")
-            if worst > GRAD_TOL[dt]:
-                raise AssertionError(f"conv_chain_backward {name} {dt}: relative error {worst}")
+            args = (x, acts, wd, gy, relu, needs_dx)
+            got = cc.conv_chain_backward(*args)
+            tol = GRAD_TOL[dt]
+            if dt == torch.bfloat16:
+                want = cc.conv_chain_backward_reference(*args)
+                errs = grad_errors(got, want, needs_dx)
+                against = "plain backward"
+            else:
+                want = cc.conv_chain_backward_reference(*args, acc=torch.float64)
+                errs = grad_errors(got, want, needs_dx)
+                cudnn = worst_by_kind(grad_errors(cc.conv_chain_backward_reference(*args), want, needs_dx))
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    tf32 = worst_by_kind(grad_errors(cc.conv_chain_backward_reference(*args), want, needs_dx))
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                against = "float64 witness"
+                log(f"  witness readings {name} float32: cuDNN f32 "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in cudnn.items()) + "; cuDNN TF32 "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in tf32.items()))
+                for kind in ("dW", "dx"):
+                    if kind in tf32 and not tol[kind] < tf32[kind]:
+                        raise AssertionError(f"conv_chain_backward {name}: the f32 {kind} limit {tol[kind]} "
+                                             f"does not exclude a TF32 run ({tf32[kind]:.2e})")
+            worst = worst_by_kind(errs)
+            log(f"check conv_chain_backward {name} {str(dt)[6:]} {tuple(shape)} against the {against}: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {tol})")
+            bad = [k for k, v in worst.items() if v > tol[k]]
+            if bad:
+                raise AssertionError(f"conv_chain_backward {name} {dt}: {bad} outside {tol}")
             if dt != task.dtype:
-                del got, want, pairs
+                del got, want
                 continue
-            err_main = max(err_main, max(abs_err(*v) for v in pairs.values()))
-            del got, want, pairs
+            err_main = max(err_main, abs_err(got[0], want[0]) if needs_dx else 0.0,
+                           *(abs_err(a, b) for a, b in zip(got[1] + got[2], want[1] + want[2])))
+            del got, want
             with torch.enable_grad():  # the yardstick's graph: autograd over cuDNN
                 xl = x.permute(0, 3, 1, 2).detach().requires_grad_(needs_dx)
                 wl = [cc.unpack_oihw(w).contiguous(memory_format=torch.channels_last).requires_grad_()
@@ -520,6 +564,82 @@ def check_train_against_cpu() -> None:
         raise AssertionError("CUDA and CPU train steps differ")
 
 
+def check_trunk(fused: bool, dtype):
+    """Full-width ResNet50 on the card with ``init_params``' distributions
+    from the seed, and BN scales, shifts and running statistics drawn away
+    from their initial values, so that each of them is exercised."""
+    from acoustic_image_generation_tpu_torch.models.resnet import BatchNorm, ResNet50
+
+    resnet = ResNet50(fused_bn_stats=fused, device="cuda", dtype=dtype)
+    g = torch.Generator().manual_seed(SEED)
+    for m in resnet.modules():
+        if m is not resnet and hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    g = torch.Generator().manual_seed(SEED + 6)
+    with torch.no_grad():
+        for m in resnet.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.75 + 0.5 * torch.rand(c, generator=g))
+                m.bias.copy_(0.05 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return resnet
+
+
+def check_fused_units(cs, inputs) -> None:
+    """Each fused unit of the bf16 trunk (conv, BN on the batch statistics,
+    ReLU) on the input the trunk gave it: the port's module on the card
+    (the kernel and ``BatchNorm.forward_stats``) against the plain version
+    with JAX's ``_TrainBN`` written out (the batch mean subtracted in bf16).
+
+    The kernel's ``y`` is held to one bf16 rounding of the plain ``y``, its
+    batch mean and variance within 1e-3 of their largest entry: the
+    variance is the difference of two f32 sums over up to 0.4 M rows, which
+    magnifies their rounding where the mean is large (1.5e-4 measured).
+    The unit's output may differ by what those gaps carry through BN: one
+    bf16 rounding (2^-7 relative at most) each of ``y``, the mean, the scale
+    ``inv`` and the output on either side, and the relative gap ``dinv``
+    between the two sides' ``rsqrt(var + eps)``."""
+    bf16 = torch.bfloat16
+    u = 2.0**-7
+    worst_y = worst_stats = worst_unit = 0.0
+    for m, x in inputs:
+        w = m.weight.to(m.dtype)
+        w = w.reshape(w.shape[0], -1).t()
+        y, mean, var = cs.conv1x1_batch_stats(x, w)
+        wy, s, ss = cs.matmul_stats_reference(x.reshape(-1, x.shape[-1]), w)
+        rows = wy.shape[0]
+        wmean = s / rows
+        wvar = torch.clamp_min(ss / rows - wmean * wmean, 0.0)
+        diff = (y.reshape(wy.shape).float() - wy.float()).abs()
+        tol = CHAIN_TOL[bf16]
+        if bool((diff > tol["atol"] + tol["rtol"] * wy.float().abs()).any()):
+            raise AssertionError(f"matmul_stats y of a fused trunk conv {tuple(x.shape)} off")
+        worst_y = max(worst_y, float(diff.max()))
+        worst_stats = max(worst_stats, rel_err(mean, wmean), rel_err(var, wvar))
+
+        got = m(x, train=True).reshape(wy.shape).float()
+        inv = m.bn.weight * torch.rsqrt(wvar + m.bn.eps)
+        want = (wy - wmean.to(bf16)) * inv.to(bf16) + m.bn.bias.to(bf16)
+        want = (torch.relu(want) if m.relu else want).float()
+        dinv = (torch.rsqrt(var + m.bn.eps) / torch.rsqrt(wvar + m.bn.eps) - 1).abs()
+        yf = wy.float()
+        limit = (u * (2 * (yf.abs() + wmean.abs()) * inv.abs() + 2 * want.abs())
+                 + (yf - wmean).abs() * inv.abs() * (2 * u + dinv))
+        ratio = float(((got - want).abs() / limit.clamp_min(1e-30)).max())
+        worst_unit = max(worst_unit, ratio)
+        if ratio > 1:
+            raise AssertionError(f"fused unit {tuple(x.shape)} -> {m.weight.shape[0]}: output outside "
+                                 f"its bf16 bound ({ratio:.3f} of it)")
+    log(f"check the trunk's {len(inputs)} fused units bf16 on their trunk inputs: kernel y max_abs_err "
+        f"{worst_y:.3e} (tol {CHAIN_TOL[bf16]}), batch mean and variance worst {worst_stats:.2e} of "
+        f"their largest (tol 1e-3); unit output against the plain version with JAX's BN, worst "
+        f"{worst_unit:.3f} of its bf16 bound (tol 1)")
+    if worst_stats > 1e-3:
+        raise AssertionError(f"fused conv batch statistics off by {worst_stats}")
+
+
 def check_fused_bn_stats(cs) -> int:
     """The trunk's train-mode forward with ``fused_bn_stats`` against the
     same trunk without it, full width, FRAMES frames, from the same weights;
@@ -529,78 +649,54 @@ def check_fused_bn_stats(cs) -> int:
     any difference grows steadily: in f32 from 2e-5 of the largest value
     after the first unit to 8e-4 at ``conv_map`` (measured at 8 frames on an
     H100). So f32 holds the output within 2e-2 of its largest entry and the
-    batch statistics (the running-average updates divided by 0.003) within
-    2e-2 of each one's largest. In bf16 the fused BN also subtracts the
-    batch mean in bf16, as JAX's ``_TrainBN`` does, where the plain BN works
-    in f32, and the gap at the output is of the order of the output itself:
-    it is logged, not held. What bf16 holds is each of the 36 fused convs,
-    on the input the trunk gave it: the kernel against the plain version,
-    ``y`` at the bf16 tolerance of the kernel check and the batch mean and
-    variance within 1e-3 of their largest entry: the variance is the
-    difference of two f32 sums over up to 0.4 M rows, which magnifies their
-    rounding where the mean is large (1.5e-4 measured)."""
-    from acoustic_image_generation_tpu_torch.models.layers import as_compute
+    batch statistics (the running-average updates undone) within 2e-2 of
+    each one's largest. In bf16 the fused BN subtracts the batch mean in
+    bf16, as JAX's ``_TrainBN`` does, where the plain BN works in f32, and
+    the gap at the output is of the order of the output itself: it is
+    logged, and bf16 is held unit by unit (``check_fused_units``)."""
     from acoustic_image_generation_tpu_torch.models.resnet import BN_MOMENTUM
-    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 
     video = torch.rand((FRAMES, 224, 298, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 5),
                        device="cuda")
     launches = 0
-    for dtype in ("float32", "bfloat16"):
+    for dtype in (torch.float32, torch.bfloat16):
         runs = {}
         for fused in (False, True):
-            task = GenerationTask(GenerationConfig(compute_dtype=dtype), device="cuda",
-                                  fused_bn_stats=fused).init_params(SEED)
-            before = {n: b.clone() for n, b in task.named_buffers()}
+            resnet = check_trunk(fused, dtype)
+            before = {n: b.clone() for n, b in resnet.named_buffers()}
             inputs = []
             hooks = [m.register_forward_pre_hook(lambda m, args: inputs.append((m, args[0])))
-                     for m in task.resnet.modules()
-                     if dtype == "bfloat16" and getattr(m, "fused_stats", False)]
+                     for m in resnet.modules()
+                     if dtype == torch.bfloat16 and getattr(m, "fused_stats", False)]
             with torch.no_grad():
                 torch.cuda.synchronize()
                 cs.matmul_stats.launches = 0
-                out = task.resnet(video, mode="full", train=True)
+                out = resnet(video, mode="full", train=True)
                 torch.cuda.synchronize()
                 n = cs.matmul_stats.launches
             for h in hooks:
                 h.remove()
-            batch_stats = {k: (b - BN_MOMENTUM * before[k]) / (1 - BN_MOMENTUM) for k, b in task.named_buffers()}
+            batch_stats = {k: (b - BN_MOMENTUM * before[k]) / (1 - BN_MOMENTUM)
+                           for k, b in resnet.named_buffers()}
             runs[fused] = (out, batch_stats, inputs)
-        log(f"fused_bn_stats trunk {dtype}, {FRAMES} frames: {n} matmul_stats launches (expected 36)")
+        log(f"fused_bn_stats trunk {str(dtype)[6:]}, {FRAMES} frames: {n} matmul_stats launches (expected 36)")
         if n != 36:
             raise AssertionError(f"fused_bn_stats: {n} matmul_stats launches, expected 36")
         (want, want_stats, _), (got, got_stats, inputs) = runs[False], runs[True]
         out_err = rel_err(got, want)
         stats_err = max(rel_err(got_stats[k], v) for k, v in want_stats.items())
-        log(f"fused_bn_stats vs plain trunk {dtype}: output {out_err:.2e} of the largest output, batch "
-            f"statistics worst {stats_err:.2e} of their largest")
-        if dtype == "float32":
+        log(f"fused_bn_stats vs plain trunk {str(dtype)[6:]}: output {out_err:.2e} of the largest output, "
+            f"batch statistics worst {stats_err:.2e} of their largest")
+        if dtype == torch.float32:
             if not (out_err <= 2e-2 and stats_err <= 2e-2):
                 raise AssertionError("fused_bn_stats f32 trunk differs from the plain trunk")
             continue
         launches = n
-        worst_y = worst_stats = 0.0
-        for m, x in inputs:
-            w = as_compute(m.weight, m.dtype)
-            w = w.reshape(w.shape[0], -1).t()
-            y, mean, var = cs.conv1x1_batch_stats(x, w)
-            wy, s, ss = cs.matmul_stats_reference(x.reshape(-1, x.shape[-1]), w)
-            rows = wy.shape[0]
-            wmean = s / rows
-            wvar = torch.clamp_min(ss / rows - wmean * wmean, 0.0)
-            diff = (y.reshape(wy.shape).float() - wy.float()).abs()
-            tol = CHAIN_TOL[torch.bfloat16]
-            if bool((diff > tol["atol"] + tol["rtol"] * wy.float().abs()).any()):
-                raise AssertionError(f"matmul_stats y of a fused trunk conv {tuple(x.shape)} off")
-            worst_y = max(worst_y, float(diff.max()))
-            worst_stats = max(worst_stats, rel_err(mean, wmean), rel_err(var, wvar))
-        log(f"check the trunk's {len(inputs)} fused convs bf16, kernel vs plain on their trunk inputs: "
-            f"y max_abs_err {worst_y:.3e} (tol {CHAIN_TOL[torch.bfloat16]}), batch mean and variance "
-            f"worst {worst_stats:.2e} of their largest (tol 1e-3)")
-        if worst_stats > 1e-3:
-            raise AssertionError(f"fused conv batch statistics off by {worst_stats}")
+        with torch.no_grad():
+            check_fused_units(cs, inputs)
         del runs, inputs
     return launches
+
 
 def request(rng, n=FRAMES):
     audio = rng.integers(-(2**15), 2**15, (n, 1024)).astype(np.int32)
