@@ -20,6 +20,10 @@ Every flax leaf must land on exactly one port tensor and every port tensor
 must be set; anything else raises. The values land in the port's f32
 masters unrounded. ``to_flax(task)`` gives the trees back, as numpy f32,
 so that the two packages' trajectories compare leaf by leaf.
+
+``load_qtrunk(qt, tree)`` and ``qtrunk_to_tree(qt)`` do the same for the
+int8 trunk of ``models/quant.py`` (JAX's ``quantize_trunk``/``calibrate``
+pytree; int8 HWIO weights become the kernels' (O, kh*kw*I)).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from acoustic_image_generation_tpu_torch.models.blocks import ChainConv
 from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF, Dense
+from acoustic_image_generation_tpu_torch.models.quant import QLayer, QuantTrunk
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN
 
 
@@ -132,6 +137,63 @@ def load_flax(task: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> N
     unset = [n for n, t in (*task.named_parameters(), *task.named_buffers()) if id(t) not in covered]
     if unset:
         raise KeyError(f"port tensors with no flax leaf: {unset}")
+
+
+def _qtargets(qt: QuantTrunk):
+    """(port tensor, JAX path, layout transform, inverse) for every leaf of
+    the quantized trunk: ``w`` HWIO int8 <-> (O, kh*kw*I); ``scale`` and
+    ``bias`` as they are; each ``act`` site a 0-dim f32."""
+    out = []
+    for name, m in qt.named_modules():
+        if not isinstance(m, QLayer):
+            continue
+        p = tuple(name.split("."))
+        (kh, kw), ci = m.kernel, m.in_ch
+
+        def hwio_to_ok(a):
+            return a.transpose(3, 0, 1, 2).reshape(a.shape[3], -1)
+
+        def ok_to_hwio(a, kh=kh, kw=kw, ci=ci):
+            return a.reshape(a.shape[0], kh, kw, ci).transpose(1, 2, 3, 0)
+
+        out += [(m.w, p + ("w",), hwio_to_ok, ok_to_hwio),
+                (m.scale, p + ("scale",), _same, _same),
+                (m.bias, p + ("bias",), _same, _same)]
+    out += [(qt.amax(site), ("act", site), _same, _same) for site in qt.sites]
+    return out
+
+
+def load_qtrunk(qt: QuantTrunk, tree: Mapping) -> QuantTrunk:
+    """Copy JAX's quantized trunk (``quant.quantize_trunk``/``calibrate``'s
+    tree, as numpy arrays: int8 HWIO ``w``, f32 ``scale``, ``bias``, and the
+    ``act`` amaxes) into ``qt``. Every leaf must land on exactly one port
+    tensor and every port tensor must be set. Returns ``qt``."""
+    flat = _flatten(tree)
+    used = set()
+    for tensor, path, fn, _ in _qtargets(qt):
+        if path not in flat:
+            raise KeyError(f"no quantized-trunk leaf {'/'.join(path)} for a port tensor")
+        value = np.array(fn(np.asarray(flat[path])), order="C")
+        if value.shape != tuple(tensor.shape):
+            raise ValueError(f"{'/'.join(path)}: {value.shape} does not fit port tensor {tuple(tensor.shape)}")
+        with torch.no_grad():
+            tensor.copy_(torch.from_numpy(value).to(tensor.dtype))
+        used.add(path)
+    left = sorted("/".join(p) for p in flat if p not in used)
+    if left:
+        raise KeyError(f"quantized-trunk leaves with no port tensor: {left}")
+    return qt
+
+
+def qtrunk_to_tree(qt: QuantTrunk) -> dict:
+    """The inverse of ``load_qtrunk``: JAX's tree layout, numpy arrays."""
+    tree: dict = {}
+    for tensor, path, _, inverse in _qtargets(qt):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(inverse(tensor.detach().cpu().numpy()), order="C")
+    return tree
 
 
 def to_flax(task: torch.nn.Module) -> tuple[dict, dict]:

@@ -175,6 +175,7 @@ class ResNet50(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.dtype = dtype
+        self.blocks = tuple(blocks)
         self.freeze_trunk = freeze_trunk
         self.trunk_bn_frozen = trunk_bn_frozen
         self.unit_names = []

@@ -3,15 +3,25 @@ map -> ``UNetAcResNet``, with its loss for training.
 
 Counterpart of ``acoustic_image_generation_tpu/train/generation.py::
 GenerationTask`` (``__init__``, ``param_labels``, ``trunk_features``,
-``_forward``, ``loss``, ``generate``). The parameters are f32 masters in the
-task's modules, on one device; every layer computes in the compute dtype
-(BN statistics stay f32). They come from ``init_params(seed)`` or from the
-JAX package's variables through ``bridge.load_flax``.
+``_forward``, ``loss``, ``eval_losses``, ``generate``, ``build_qtrunk``). The
+parameters are f32 masters in the task's modules, on one device; every
+layer computes in the compute dtype (BN statistics stay f32). They come from
+``init_params(seed)`` or from the JAX package's variables through
+``bridge.load_flax``.
 
 As in JAX the trunk is frozen (``freeze_trunk``): only the generator and
 ``resnet.conv_map`` train, and their parameters alone require grad. With
 ``trunk_bn="train"`` (the default) the trunk's BN statistics still update
 in every train forward.
+
+``trunk_quant="int8"`` (with ``trunk_bn="frozen"``, which the BN folding
+needs) runs the frozen trunk as the BN-folded W8A8 program of
+``models/quant.py``. Its ``QuantTrunk`` is built once (``build_qtrunk``,
+calibrated on normalized frames) and passed to ``loss``, ``eval_losses`` and
+``generate`` as ``qtrunk``; the features then take the head-only path, so
+``conv_map``'s BN statistics and gradients are those of the f32 trunk's
+path. ``fused_qgemm`` puts every 1x1 trunk conv on the ``qgemm_s8`` kernel.
+The L2 term still covers the f32 trunk kernels, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from acoustic_image_generation_tpu_torch.losses.recon import (
     sigmoid_ce_logits,
 )
 from acoustic_image_generation_tpu_torch.losses.regularization import l2_regularization
+from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk, calibrate, quantize_trunk, trunk_forward
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN, ResNet50
 from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcResNet, VaeOutput
 
@@ -55,7 +66,8 @@ def no_tf32():
 class GenerationConfig:
     """The fields of the JAX ``ExperimentConfig`` that serving and the train
     step read: ``model.num_skip_conn``, ``model.ae``, ``model.resnet_units``,
-    ``model.trunk_bn``, ``parallel.compute_dtype``, ``optim.learning_rate``,
+    ``model.trunk_bn``, ``model.trunk_quant``, ``model.fused_qgemm``,
+    ``data.correspondence``, ``parallel.compute_dtype``, ``optim.learning_rate``,
     ``optim.latent_loss``, ``optim.mse``, ``optim.huber``, ``optim.bce``,
     ``optim.resnet_weight_decay`` and ``run.seed``, with JAX's defaults
     (bfloat16 is the CLI's default compute dtype). float32 work runs
@@ -65,6 +77,9 @@ class GenerationConfig:
     ae: bool = False
     resnet_units: tuple[int, int, int, int] = (3, 4, 6, 3)
     trunk_bn: str = "train"  # train | frozen: trunk BN on batch or running statistics
+    trunk_quant: str = "none"  # none | int8: the frozen trunk as a BN-folded W8A8 program
+    fused_qgemm: bool = False  # int8: every 1x1 trunk conv on the qgemm_s8 kernel
+    correspondence: bool = False  # the correspondence augmentation: not ported, raises
     compute_dtype: str = "bfloat16"
     learning_rate: float = 1e-4
     latent_loss: float = 1e-6
@@ -82,6 +97,12 @@ class GenerationTask(nn.Module):
             raise ValueError(f"unknown compute dtype {config.compute_dtype!r}")
         if config.trunk_bn not in ("train", "frozen"):
             raise ValueError(f"trunk_bn must be 'train' or 'frozen', got {config.trunk_bn!r}")
+        if config.trunk_quant not in ("none", "int8"):
+            raise ValueError(f"unknown trunk_quant {config.trunk_quant!r}")
+        if config.trunk_quant == "int8" and config.trunk_bn != "frozen":
+            raise ValueError('trunk_quant="int8" requires trunk_bn="frozen"')
+        if config.correspondence:
+            raise NotImplementedError("the correspondence augmentation is not ported")
         self.cfg = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.compute_dtype]
@@ -123,19 +144,35 @@ class GenerationTask(nn.Module):
         L2 term covers."""
         return [m.weight for m in self.resnet.modules() if isinstance(m, ConvBN)]
 
-    def trunk_features(self, video: torch.Tensor) -> torch.Tensor:
-        """Block4 output (N,14,19,2048) in the compute dtype, eval-mode BN."""
+    def trunk_features(self, video: torch.Tensor, qtrunk: QuantTrunk | None = None) -> torch.Tensor:
+        """Block4 output (N,14,19,2048) in the compute dtype, eval-mode BN;
+        with ``qtrunk`` (a calibrated ``QuantTrunk``) through the int8
+        program, which quantizes the f32 ``video`` itself."""
+        if qtrunk is not None:
+            with torch.no_grad():
+                feat, _ = trunk_forward(qtrunk, video, out_dtype=self.dtype,
+                                        fused_gemm=self.cfg.fused_qgemm)
+            return feat
         with no_tf32():
             return self.resnet(video, mode="trunk")
 
+    def build_qtrunk(self, video: torch.Tensor) -> QuantTrunk:
+        """Fold, quantize and calibrate the int8 trunk from the ResNet's
+        current (frozen) weights, on ``video``: normalized frames
+        (N,224,298,3) f32."""
+        return calibrate(quantize_trunk(self.resnet), video)
+
     def _forward(self, mfcc, video, *, train: bool = False, eps=None, generator=None,
-                 trunk_feat=None) -> VaeOutput:
+                 trunk_feat=None, qtrunk=None) -> VaeOutput:
         """The forward pass. ``train``: BN on batch statistics, the running
         averages of every train-mode BN updated in place (JAX returns them as
         new ``batch_stats``); the VAE noise must then come from ``eps`` or
-        ``generator``."""
+        ``generator``. ``qtrunk``: the trunk runs as the int8 program and its
+        features take the head-only path."""
         if train and not self.cfg.ae and eps is None and generator is None:
             raise ValueError("a train forward samples the VAE noise: pass eps or generator")
+        if trunk_feat is None and qtrunk is not None:
+            trunk_feat = self.trunk_features(video, qtrunk)
         if trunk_feat is None:
             feat = self.resnet(video, mode="full", train=train)
         else:
@@ -171,17 +208,30 @@ class GenerationTask(nn.Module):
         metrics["loss"] = total
         return total, metrics
 
-    def loss(self, batch: Batch, *, eps=None, generator=None, trunk_feat=None):
+    def loss(self, batch: Batch, *, eps=None, generator=None, trunk_feat=None, qtrunk=None):
         """Train-mode forward and objective: ``(total, metrics)``. The BN
         running averages are updated in place."""
         out = self._forward(batch.mfcc, batch.video, train=True, eps=eps, generator=generator,
-                            trunk_feat=trunk_feat)
+                            trunk_feat=trunk_feat, qtrunk=qtrunk)
         return self.objective(out, batch)
 
-    def generate(self, mfcc, video, *, eps=None, generator=None) -> torch.Tensor:
+    def eval_losses(self, batch: Batch, *, eps=None, generator=None, qtrunk=None):
+        """Per-frame eval losses, eval-mode forward: ``({"mse": (N,),
+        "mse0".."mse3": (N,)}, recon (N,36,48,12) f32)``, the MSE over each
+        frame and over each group of three channels (JAX's ``eval_losses``)."""
+        with no_tf32():
+            out = self._forward(batch.mfcc, batch.video, eps=eps, generator=generator, qtrunk=qtrunk)
+        recon = out.output.float()
+        err = torch.square(recon - batch.acoustic)
+        losses = {"mse": err.mean(dim=(1, 2, 3))}
+        for i in range(4):
+            losses[f"mse{i}"] = err[..., 3 * i: 3 * i + 3].mean(dim=(1, 2, 3))
+        return losses, recon
+
+    def generate(self, mfcc, video, *, eps=None, generator=None, qtrunk=None) -> torch.Tensor:
         """(mfcc (N,12), video (N,224,298,3) in [0,1]) -> generated acoustic
         images (N,36,48,12) float32. The VAE noise is ``eps`` when given,
-        else drawn from ``generator``."""
+        else drawn from ``generator``; ``qtrunk`` runs the int8 trunk."""
         with no_tf32():
-            out = self._forward(mfcc, video, eps=eps, generator=generator)
+            out = self._forward(mfcc, video, eps=eps, generator=generator, qtrunk=qtrunk)
         return out.output.to(torch.float32)

@@ -1,10 +1,15 @@
 """The generation train step.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
-(``__init__``, ``init_state``, ``_prepare`` and ``_step_core``): raw clips
--> device preprocessing -> train-mode forward and loss -> backward -> TF1
-Adam on the trainable parameters. JAX runs it as one jitted program; here it
-runs eagerly on the task's device and updates the state in place.
+(``__init__``, ``init_state``, ``_prepare``, ``_step_core``,
+``_eval_step_impl`` and ``_maybe_build_qtrunk``): raw clips -> device
+preprocessing -> train-mode forward and loss -> backward -> TF1 Adam on the
+trainable parameters. JAX runs it as one jitted program; here it runs
+eagerly on the task's device and updates the state in place.
+
+With ``trunk_quant="int8"`` the trainer folds, quantizes and calibrates the
+trunk once, from the normalized frames of the first batch it sees (train
+or eval), and every later step runs the int8 trunk (``Trainer.qtrunk``).
 
 RNG: the VAE noise of step ``s`` comes from one ``torch.Generator`` seeded
 from ``(seed, s)`` (``step_generator``), the counterpart of
@@ -17,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from acoustic_image_generation_tpu_torch.data.preprocess import Batch, preprocess_batch
+from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
 from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from acoustic_image_generation_tpu_torch.train.state import TrainState
@@ -34,6 +39,7 @@ class Trainer:
         self.task = task
         self.cfg = task.cfg
         self.device = task.device
+        self.qtrunk = None  # the int8 trunk, built from the first batch
 
     def init_state(self) -> TrainState:
         """Step 0 and TF1 Adam over the task's trainable parameters (those
@@ -54,21 +60,52 @@ class Trainer:
             flat[key] = t.reshape(-1, *t.shape[2:]).to(self.device, non_blocking=True)
         return preprocess_batch(flat["audio"], flat["video"], flat["acoustic"])
 
+    def _maybe_build_qtrunk(self, raw: dict) -> None:
+        """With ``trunk_quant="int8"``, once: fold, quantize and calibrate the
+        frozen trunk on the normalized frames of ``raw``."""
+        if self.cfg.trunk_quant != "int8" or self.qtrunk is not None:
+            return
+        video = torch.as_tensor(raw["video"])
+        video = video.reshape(-1, *video.shape[2:]).to(self.device)
+        self.qtrunk = self.task.build_qtrunk(normalize_video(video))
+
+    def _noise(self, step: int, eps):
+        """``(eps tensor, None)`` when the noise is given, else ``(None, the
+        step's generator)``."""
+        if eps is None:
+            return None, step_generator(self.cfg.seed, step, self.device)
+        return torch.as_tensor(np.array(eps, np.float32), device=self.device), None
+
     def train_step(self, state: TrainState, raw: dict, *, eps=None) -> tuple[TrainState, dict]:
         """One step: prepare, loss and grads, TF1 Adam, trunk BN statistics
         updated. ``eps`` (frames, 150) replaces the step's VAE noise. Returns
         the state (updated in place, step advanced) and the loss terms as
         detached f32 scalars."""
-        generator = None
-        if eps is None:
-            generator = step_generator(self.cfg.seed, state.step, self.device)
-        else:
-            eps = torch.as_tensor(np.array(eps, np.float32), device=self.device)
+        self._maybe_build_qtrunk(raw)
+        eps, generator = self._noise(state.step, eps)
         with no_tf32():
             batch = self._prepare(raw)
-            total, metrics = self.task.loss(batch, eps=eps, generator=generator)
+            total, metrics = self.task.loss(batch, eps=eps, generator=generator, qtrunk=self.qtrunk)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    def eval_step(self, state: TrainState, raw: dict, *, eps=None) -> tuple[dict, torch.Tensor]:
+        """Eval of one batch through the trunk the steps use: the per-frame
+        losses of ``GenerationTask.eval_losses`` summed over the frames of
+        the first ``raw["valid"]`` clips (all clips when absent; a padded
+        remainder batch). Returns ``({name: f32 sum}, frames counted)``.
+        Without the correspondence augmentation a batch is one half."""
+        self._maybe_build_qtrunk(raw)
+        eps, generator = self._noise(state.step, eps)
+        with torch.no_grad():
+            batch = self._prepare(raw)
+            losses, _ = self.task.eval_losses(batch, eps=eps, generator=generator, qtrunk=self.qtrunk)
+        n_total = batch.video.shape[0]
+        clips = raw["video"].shape[0]
+        valid = raw.get("valid", clips)
+        per_clip = n_total // clips
+        mask = (torch.arange(n_total, device=self.device) < valid * per_clip).float()
+        return {k: torch.sum(v * mask) for k, v in losses.items()}, torch.sum(mask)

@@ -29,7 +29,15 @@ imports nothing of JAX. Phases, each fatal on failure:
 7. the trunk's train-mode forward with ``fused_bn_stats`` (the
    ``matmul_stats`` kernel) against the same trunk without it, 96 frames,
    and each bf16 fused unit against its plain version;
-8. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+8. the int8 frozen trunk (BN folded, W8A8, ``fused_qgemm``): the trunk on
+   the card at 96 frames, fused (``qgemm_s8``, checked in phase 2 at the 18
+   shapes of its 36 launches, at 96 and 768 frames) against unfused, CUDA
+   against the CPU, int8 against the bf16 eval trunk; four int8 requests
+   through ``GenerationService`` (calibrated from the first) and five int8
+   train steps (calibrated from the first batch) with launch counts, beside
+   the bf16 requests of phase 3 and five bf16 steps with the same frozen
+   trunk;
+9. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
@@ -56,7 +64,7 @@ TRAIN_CLIPS = 64  # the JAX package's uncached train-step batch (bench.py)
 TRAIN_FRAMES = 12 * TRAIN_CLIPS
 TRAIN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}  # dense, no TF32
 MFCC_TOL = dict(rtol=2e-3, atol=2e-3)
 CHAIN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 PATH_TOL = 1e-3  # CUDA vs CPU serving output, f32, sigmoid scale
@@ -71,6 +79,24 @@ PATH_TOL = 1e-3  # CUDA vs CPU serving output, f32, sigmoid scale
 # on) reads: dx 3.9e-4, dW 9.2e-4 at the least.
 GRAD_TOL = {torch.bfloat16: dict(dx=1e-2, dW=1e-3, db=1e-5),
             torch.float32: dict(dx=1e-5, dW=1e-5, db=1e-5)}
+# qgemm_s8 against its plain version: JAX's bound for its kernel against the
+# unfused epilogue (tests/test_pallas_qgemm.py), at most one int8 quantum on
+# under 1% of the entries; fewer than 5% of the outputs may clip, so that
+# the comparison is not of saturated values. The int8 trunk on the card
+# against the CPU (the same program, kernels against plain versions): JAX's
+# bound between its fused and unfused trunks (tests/test_quant.py, four
+# units), relative error under 0.05 and at most 8 quanta of the last site.
+# Fused against unfused at full depth: the two programs round in another
+# order at every one of the 16 units, and the gap grows with depth (on the
+# CPU, 2 frames: 4.6e-3 over 4 units, 9.2e-3 over 6, 4.83e-2 and 9 quanta
+# over 16, outside JAX's four-unit bound); held to what quantization itself
+# may cost against the f32 trunk (tests/test_quant.py): relative 0.1, and
+# 16 quanta.
+QGEMM_TOL = dict(quanta=1, frac=0.01, clipped=0.05)
+TRUNK_TOL = dict(rel=0.05, quanta=8)
+FUSED_TOL = dict(rel=0.1, quanta=16)
+QGEMM_FRAMES = (FRAMES, TRAIN_FRAMES)
+A_AMAX, RES_AMAX = 3.7, 2.2
 
 
 def log(*parts) -> None:
@@ -402,6 +428,166 @@ def check_matmul_stats(cs, task) -> dict:
     )
 
 
+def qgemm_launches(blocks=None):
+    """(rows per frame, K, N, residual, relu) of each of the 36 ``qgemm_s8``
+    launches of one full-width trunk forward: every unit's projection
+    shortcut (on the subsampled grid), conv1 and conv3."""
+    from acoustic_image_generation_tpu_torch.models.resnet import RESNET50_BLOCKS
+
+    out = []
+    h, w, in_ch = 55, 74, 64  # after the stem and its max-pool
+    for base, units, block_stride in blocks or RESNET50_BLOCKS:
+        for u in range(1, units + 1):
+            s = block_stride if u == units else 1
+            ho, wo = -(-h // s), -(-w // s)
+            if base * 4 != in_ch:
+                out.append((ho * wo, in_ch, base * 4, False, False))
+            out.append((h * w, in_ch, base, False, True))
+            out.append((ho * wo, base, base * 4, True, True))
+            h, w, in_ch = ho, wo, base * 4
+    return out
+
+
+def qgemm_case(g, m, k, n, res):
+    """Random int8 operands for one ``qgemm_s8`` shape, and an output amax
+    that about 1% of the float results exceed (read off the first 8192
+    rows)."""
+    x = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 0.01 + 1e-3
+    bias = torch.randn(n, generator=g, device="cuda") * 0.5
+    r = torch.randint(-127, 128, (m, n), generator=g, device="cuda", dtype=torch.int8) if res else None
+    factor = A_AMAX / 127 * scale
+    head = torch._int_mm(x[:8192], w.t().contiguous()).float() * factor + bias
+    if res:
+        head = head + r[:8192].float() * (RES_AMAX / 127)
+    out_amax = torch.quantile(head.relu().flatten()[: 1 << 23], 0.99)
+    return x, w, factor, bias, r, out_amax
+
+
+def check_qgemm(qg) -> dict:
+    """``qgemm_s8`` against its plain version at every distinct shape of the
+    trunk's 36 launches, at 96 (a request) and 768 frames (a train step);
+    kernel, plain and library times and the bound, per shape and summed over
+    one trunk forward's launches. Returns the 96-frame line of ``kernels``."""
+    from collections import Counter
+
+    shapes = Counter(qgemm_launches())
+    log(f"qgemm_s8: {sum(shapes.values())} launches per trunk forward, {len(shapes)} distinct (rows, K, N, "
+        f"residual) shapes, {len({(k, n, r) for _, k, n, r, _ in shapes})} distinct (K, N, residual)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    result = {}
+    for frames in QGEMM_FRAMES:
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, ops=0.0, bound_ms=0.0)
+        worst = dict(quanta=0, frac=0.0, clipped=0.0)
+        for (rows, k, n, res, relu), count in shapes.items():
+            m = frames * rows
+            x, w, factor, bias, r, out_amax = qgemm_case(g, m, k, n, res)
+            kw = dict(relu=relu, residual=r, residual_amax=torch.tensor(RES_AMAX, device="cuda") if res else None)
+            got = qg.qgemm_s8(x, w, factor, bias, out_amax, **kw)
+            want = qg.qgemm_s8_reference(x, w, factor, bias, out_amax, **kw)
+            torch.cuda.synchronize()
+            diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+            quanta, frac = int(diff.max()), float((diff > 0).sum()) / diff.numel()
+            clipped = float((got.abs() == 127).sum()) / got.numel()
+            del diff, want
+            name = f"({m},{k})@({k},{n}){' +res' if res else ''}{' relu' if relu else ''}"
+            log(f"check qgemm_s8 {frames} frames {name}: {quanta} quanta at most, on {frac:.2e} of the "
+                f"entries, {clipped:.2e} clipped (tol {QGEMM_TOL})")
+            if quanta > QGEMM_TOL["quanta"] or frac >= QGEMM_TOL["frac"] or not 0 < clipped < QGEMM_TOL["clipped"]:
+                raise AssertionError(f"qgemm_s8 {name}: {quanta} quanta on {frac} of entries, {clipped} clipped")
+            for key, v in dict(quanta=quanta, frac=frac, clipped=clipped).items():
+                worst[key] = max(worst[key], v)
+            fb, rs = qg._folded(factor, bias, out_amax, kw["residual_amax"], x.device)
+            w_kn = w.t().contiguous()
+
+            def library(x=x, w_kn=w_kn, fb=fb, rs=rs, r=r, relu=relu):
+                return qg.requant(torch._int_mm(x, w_kn), fb, rs, r, relu)
+
+            iters = 10 if frames == FRAMES else 5
+            ms = time_ms(lambda: qg.qgemm_s8(x, w, factor, bias, out_amax, **kw), iters=iters)
+            plain = time_ms(lambda: qg.qgemm_s8_reference(x, w, factor, bias, out_amax, **kw), iters=3, warmup=1)
+            lib = time_ms(library, iters=3, warmup=1)
+            nbytes = m * k + n * k + m * n * (2 if res else 1) + 8 * n
+            ops = 2 * m * k * n
+            b, by = bound_ms(nbytes, ops, torch.int8)
+            log(f"time qgemm_s8 {frames} frames {name} x{count}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"_int_mm+epilogue {lib:.4f} ms, bound {b:.4f} ms ({by}), {ops / ms / 1e9:.1f} TOPS, "
+                f"{nbytes / ms / 1e6:.1f} GB/s")
+            for key, v in dict(ms=ms, plain_ms=plain, library_ms=lib, nbytes=nbytes, ops=ops, bound_ms=b).items():
+                tot[key] += v * count
+            del x, w, r, got, fb, w_kn
+            torch.cuda.empty_cache()
+        b, by = bound_ms(tot["nbytes"], tot["ops"], torch.int8)
+        log(f"time qgemm_s8 one {frames}-frame trunk forward (36 launches): kernel {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, _int_mm+epilogue {tot['library_ms']:.3f} ms, bound {b:.3f} ms ({by}; "
+            f"{tot['nbytes'] / 1e9:.2f} GB, {tot['ops'] / 1e12:.2f} Tops; per-launch bounds summed "
+            f"{tot['bound_ms']:.3f} ms); worst {worst}")
+        result[frames] = dict(
+            name="qgemm_s8", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/qgemm_s8.cu",
+            replaces="acoustic_image_generation_tpu/ops/pallas_qgemm.py:172",
+            max_abs_err=worst["quanta"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
+            library_ms=tot["library_ms"],
+        )
+    return result[FRAMES]
+
+
+def trunk_gap(got, want, quantum) -> tuple[float, float]:
+    """(relative L2 error, largest error in quanta of the last site)."""
+    got, want = got.double().flatten(), want.double().flatten()
+    rel = float((got - want).norm() / want.norm())
+    return rel, float((got - want).abs().max()) / quantum
+
+
+def check_int8_trunk(qg) -> None:
+    """The full-width int8 trunk on the card, 96 frames, from the seeded
+    trunk of ``check_trunk`` (BN statistics away from their initial values):
+    fused (``qgemm_s8``) against unfused (``_int_mm``), CUDA against the CPU
+    on 2 frames in f32, and int8 against the bf16 eval trunk; trunk times."""
+    from acoustic_image_generation_tpu_torch.models.quant import calibrate, quantize_trunk, trunk_forward
+
+    resnet = check_trunk(False, torch.bfloat16)
+    video = torch.rand((FRAMES, 224, 298, 3), generator=torch.Generator(device="cuda").manual_seed(SEED + 12),
+                       device="cuda")
+    with torch.no_grad():
+        qt = calibrate(quantize_trunk(resnet), video)
+        quantum = float(qt.amax(f"block4_unit_{3}/out")) / 127
+        torch.cuda.synchronize()
+        qg.qgemm_s8.launches = 0
+        fused = trunk_forward(qt, video, out_dtype=torch.float32, fused_gemm=True)[0]
+        torch.cuda.synchronize()
+        n = qg.qgemm_s8.launches
+        unfused = trunk_forward(qt, video, out_dtype=torch.float32)[0]
+        rel, quanta = trunk_gap(fused, unfused, quantum)
+        log(f"int8 trunk {FRAMES} frames: {n} qgemm_s8 launches (expected 36); fused vs unfused: relative "
+            f"{rel:.3e}, {quanta:.1f} quanta at most (tol {FUSED_TOL})")
+        if n != 36 or rel >= FUSED_TOL["rel"] or quanta > FUSED_TOL["quanta"]:
+            raise AssertionError("int8 trunk: fused and unfused differ, or the launches are off")
+        ref = resnet(video, mode="trunk").float()
+        rel_q = float((fused - ref).norm() / ref.norm())
+        corr = float(torch.corrcoef(torch.stack([fused.flatten(), ref.flatten()]))[0, 1])
+        log(f"int8 trunk against the bf16 eval trunk (a property of the quantization): relative {rel_q:.4f}, "
+            f"correlation {corr:.5f}")
+        if not torch.isfinite(fused).all():
+            raise AssertionError("int8 trunk features not finite")
+        ms_f = time_ms(lambda: trunk_forward(qt, video, fused_gemm=True), iters=5)
+        ms_u = time_ms(lambda: trunk_forward(qt, video), iters=5)
+        ms_b = time_ms(lambda: resnet(video, mode="trunk"), iters=5)
+        log(f"time trunk {FRAMES} frames (device): int8 fused {ms_f:.3f} ms, int8 unfused {ms_u:.3f} ms, "
+            f"bf16 eval {ms_b:.3f} ms")
+        del fused, unfused, ref
+        # CUDA (kernel) against the CPU (plain versions), 2 frames, f32 out
+        small = video[:2]
+        on_card = trunk_forward(qt, small, out_dtype=torch.float32, fused_gemm=True)[0].cpu()
+        qt_cpu = qt.to("cpu")
+        on_cpu = trunk_forward(qt_cpu, small.cpu(), out_dtype=torch.float32, fused_gemm=True)[0]
+        rel, quanta = trunk_gap(on_card, on_cpu, quantum)
+        log(f"int8 trunk cuda vs cpu (2 frames, fused, f32 out): relative {rel:.3e}, {quanta:.1f} quanta at "
+            f"most, equal {torch.equal(on_card, on_cpu)} (tol {TRUNK_TOL})")
+        if rel >= TRUNK_TOL["rel"] or quanta > TRUNK_TOL["quanta"]:
+            raise AssertionError("int8 trunk: CUDA and CPU differ")
+
+
 def train_batch(rng, clips, frames_per_clip=12):
     """One synthetic batch of raw clips, as the JAX bench makes it."""
     f = (clips, frames_per_clip)
@@ -412,61 +598,77 @@ def train_batch(rng, clips, frames_per_clip=12):
     )
 
 
-def train(kernels_mod) -> dict:
-    """TRAIN_STEPS full-width bf16 train steps on one fixed batch; returns
-    the launch counts of the steps."""
+def train(counters: dict, per_step: dict, label: str, **config) -> dict:
+    """TRAIN_STEPS full-width bf16 train steps on one fixed batch with
+    ``GenerationConfig(**config)``, the launch counts of ``counters``
+    (name -> wrapper) reset just before and read just after. Checks: the
+    loss falls, the trunk is bit-frozen (with ``trunk_quant="int8"`` its
+    int8 buffers too, from the first step's calibration on), every trained
+    tensor moves, and the trunk's BN statistics move with
+    ``trunk_bn="train"`` and stay put with ``"frozen"``. Returns the launch
+    counts and ``{median, first, peak, stages}``."""
     from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
     from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 
-    mk, cc, _ = kernels_mod
-    task = GenerationTask(GenerationConfig(seed=SEED), device="cuda").init_params(SEED)
+    task = GenerationTask(GenerationConfig(seed=SEED, **config), device="cuda").init_params(SEED)
     trainer = Trainer(task)
     state = trainer.init_state()
     raw = train_batch(np.random.default_rng(SEED + 4), TRAIN_CLIPS)
     labels = task.param_labels()
     before = {n: p.detach().clone() for n, p in task.named_parameters()}
-    stats_before = task.resnet.block1_unit_1.conv1.bn.running_mean.clone()
+    stats_before = {n: b.clone() for n, b in task.resnet.named_buffers() if not n.startswith("conv_map")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mk.mfcc.launches = cc.conv_chain.launches = cc.conv_chain_backward.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, metrics = trainer.train_step(state, raw)
         losses.append(float(metrics["loss"]))  # synchronizes
         times.append((time.perf_counter() - t0) * 1e3)
-        log(f"train step {state.step}: {times[-1]:.1f} ms, "
+        log(f"train {label} step {state.step}: {times[-1]:.1f} ms, "
             + ", ".join(f"{k} {float(v):.6g}" for k, v in metrics.items()))
-    launches = {"mfcc": mk.mfcc.launches, "conv_chain": cc.conv_chain.launches,
-                "conv_chain_backward": cc.conv_chain_backward.launches}
-    per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 12 + 12 + 11}
-    log(f"launches over {TRAIN_STEPS} train steps: {launches} (expected {per_step} per step: "
+        if state.step == 1 and trainer.qtrunk is not None:
+            q_before = {n: b.clone() for n, b in trainer.qtrunk.named_buffers()}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"train {label}: launches over {TRAIN_STEPS} steps: {launches} (expected {per_step} per step: "
         "conv_chain_backward = 12 gate + 12 weight-grad + 11 data-grad, layer1's input needs none)")
     for k, v in per_step.items():
         if launches[k] != v * TRAIN_STEPS:
-            raise AssertionError(f"train {k}: {launches[k]} launches, expected {v * TRAIN_STEPS}")
+            raise AssertionError(f"train {label} {k}: {launches[k]} launches, expected {v * TRAIN_STEPS}")
     steady = statistics.median(times[1:])
-    log(f"train: {TRAIN_CLIPS} clips x 12 frames per step, first step {times[0]:.1f} ms, median of the "
-        f"next {TRAIN_STEPS - 1} {steady:.1f} ms, {TRAIN_CLIPS / steady * 1e3:.1f} clips/s, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train {label}: {TRAIN_CLIPS} clips x 12 frames per step, first step {times[0]:.1f} ms, median of "
+        f"the next {TRAIN_STEPS - 1} {steady:.1f} ms, {TRAIN_CLIPS / steady * 1e3:.1f} clips/s, "
+        f"peak device memory {peak:.3f} GiB")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses {losses}: not finite or not lower after the last step")
+        raise AssertionError(f"train {label} losses {losses}: not finite or not lower after the last step")
     for n, p in task.named_parameters():
         same = torch.equal(p.detach(), before[n])
         if labels[n] == "frozen" and not same:
             raise AssertionError(f"frozen parameter {n} changed")
         if labels[n] == "train" and same:
             raise AssertionError(f"trained parameter {n} did not change")
-    if torch.equal(task.resnet.block1_unit_1.conv1.bn.running_mean, stats_before):
+    stats_moved = [n for n, b in task.resnet.named_buffers() if n in stats_before and not torch.equal(b, stats_before[n])]
+    if task.cfg.trunk_bn == "train" and not stats_moved:
         raise AssertionError("the trunk's BN running statistics did not change")
-    log(f"train checks: losses {losses[0]:.6g} -> {losses[-1]:.6g}, trunk bit-frozen, "
-        f"{sum(l == 'train' for l in labels.values())} trained tensors changed, trunk BN statistics moved")
-    train_stages(trainer, state, raw)
-    profile_step(trainer, state, raw)
-    return launches
+    if task.cfg.trunk_bn == "frozen" and stats_moved:
+        raise AssertionError(f"frozen trunk BN statistics changed: {stats_moved[:3]}")
+    if trainer.qtrunk is not None:
+        q_moved = [n for n, b in trainer.qtrunk.named_buffers() if not torch.equal(b, q_before[n])]
+        if q_moved:
+            raise AssertionError(f"int8 trunk buffers changed after calibration: {q_moved[:3]}")
+    log(f"train {label} checks: losses {losses[0]:.6g} -> {losses[-1]:.6g}, trunk bit-frozen"
+        + (", int8 trunk bit-frozen after its calibration" if trainer.qtrunk is not None else "")
+        + f", {sum(l == 'train' for l in labels.values())} trained tensors changed, trunk BN statistics "
+        + ("moved" if stats_moved else "unchanged"))
+    stages = train_stages(trainer, state, raw, label)
+    profile_step(trainer, state, raw, label)
+    return launches, dict(median=steady, first=times[0], peak=peak, stages=stages)
 
 
-def train_stages(trainer, state, raw) -> None:
+def train_stages(trainer, state, raw, label) -> dict:
     """Device time of each stage of one train step, by CUDA events. The
     same calls as ``Trainer.train_step``, split where the events go."""
     from acoustic_image_generation_tpu_torch.train.generation import no_tf32
@@ -480,7 +682,10 @@ def train_stages(trainer, state, raw) -> None:
         ev[0].record()
         batch = trainer._prepare(raw)
         ev[1].record()
-        feat = task.resnet(batch.video, mode="trunk", train=True)
+        if trainer.qtrunk is not None:
+            feat = task.trunk_features(batch.video, trainer.qtrunk)
+        else:
+            feat = task.resnet(batch.video, mode="trunk", train=True)
         ev[2].record()
         out = task._forward(batch.mfcc, None, train=True, trunk_feat=feat,
                             generator=step_generator(SEED, state.step, "cuda"))
@@ -495,11 +700,12 @@ def train_stages(trainer, state, raw) -> None:
         torch.cuda.synchronize()
     state.step += 1
     parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    log("stages of one train step (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+    log(f"stages of one train step {label} (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f", total {ev[0].elapsed_time(ev[-1]):.3f}")
+    return parts
 
 
-def profile_step(trainer, state, raw) -> None:
+def profile_step(trainer, state, raw, label) -> None:
     """Device time by kernel for one train step under torch.profiler, and
     the device's idle share of the step's wall time (profiling included)."""
     from torch.profiler import ProfilerActivity, profile
@@ -514,7 +720,7 @@ def profile_step(trainer, state, raw) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile of one train step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"profile of one train step {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
         f"idle {100 * (1 - busy / wall):.1f}%, {len(kernels)} distinct kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         ms = e.self_device_time_total / 1e3
@@ -704,13 +910,16 @@ def request(rng, n=FRAMES):
     return audio, video
 
 
-def serve(service, mk, cc) -> tuple[dict, list]:
+def serve(service, counters: dict, per_request: dict, label: str) -> tuple[dict, list, dict]:
+    """REQUESTS requests of FRAMES frames through ``service``, the launch
+    counts of ``counters`` (name -> wrapper) reset just before and read just
+    after; returns them, the requests and ``{median, first, peak}``."""
     rng = np.random.default_rng(SEED)
     reqs = [request(rng) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mk.mfcc.launches = 0
-    cc.conv_chain.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     times = []
     for i, (audio, video) in enumerate(reqs):
         t0 = time.perf_counter()
@@ -723,23 +932,24 @@ def serve(service, mk, cc) -> tuple[dict, list]:
             raise AssertionError(f"request {i}: output not finite in [0, 1]")
         if not torch.isfinite(energy).all():
             raise AssertionError(f"request {i}: energy not finite")
-        log(f"request {i}: {FRAMES} frames, {times[-1]:.2f} ms, output range "
+        log(f"request {label} {i}: {FRAMES} frames, {times[-1]:.2f} ms, output range "
             f"[{float(gen.min()):.4f}, {float(gen.max()):.4f}], energy mean {float(energy.mean()):.4e}")
-    launches = {"mfcc": mk.mfcc.launches, "conv_chain": cc.conv_chain.launches}
-    per_request = {"mfcc": 1, "conv_chain": 12}  # 1 frontend launch; 6 chains x 2 convs
-    log(f"launches over {REQUESTS} requests: {launches} (expected {per_request} per request)")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"launches over {REQUESTS} requests {label}: {launches} (expected {per_request} per request)")
     for k, v in per_request.items():
         if launches[k] != v * REQUESTS:
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {v * REQUESTS}")
+            raise AssertionError(f"{label} {k}: {launches[k]} launches, expected {v * REQUESTS}")
     steady = statistics.median(times[1:])
-    log(f"serving: first request {times[0]:.2f} ms, median of the next {REQUESTS - 1} "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serving {label}: first request {times[0]:.2f} ms, median of the next {REQUESTS - 1} "
         f"{steady:.2f} ms, {FRAMES / 12 / steady * 1e3:.1f} clips/s ({FRAMES / steady * 1e3:.0f} frames/s), "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, reqs
+        f"peak device memory {peak:.3f} GiB")
+    return launches, reqs, dict(median=steady, first=times[0], peak=peak)
 
 
-def stage_breakdown(task, audio, video) -> None:
-    """Device time of each stage of one request, by CUDA events."""
+def stage_breakdown(task, audio, video, label, qtrunk=None) -> dict:
+    """Device time of each stage of one request, by CUDA events; the trunk
+    stage includes ``conv_map``."""
     from acoustic_image_generation_tpu_torch.data.preprocess import preprocess_batch, tile_mfccmap
     from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
 
@@ -755,7 +965,10 @@ def stage_breakdown(task, audio, video) -> None:
             ev[1].record()
             batch = preprocess_batch(a, v)
             ev[2].record()
-            feat = task.resnet(batch.video, mode="full")
+            if qtrunk is None:
+                feat = task.resnet(batch.video, mode="full")
+            else:
+                feat = task.resnet(task.trunk_features(batch.video, qtrunk), mode="head")
             ev[3].record()
             out = task.generator(tile_mfccmap(batch.mfcc).to(task.dtype), feat, generator=g)
             ev[4].record()
@@ -764,11 +977,12 @@ def stage_breakdown(task, audio, video) -> None:
             torch.cuda.synchronize()
     parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     total = ev[0].elapsed_time(ev[-1])
-    log("stages of one request (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+    log(f"stages of one request {label} (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f", total {total:.3f}")
+    return parts
 
 
-def profile_request(service, audio, video) -> None:
+def profile_request(service, audio, video, label) -> None:
     """Device time by kernel for one request under torch.profiler, and the
     device's idle share of the request's wall time (profiling included)."""
     from torch.profiler import ProfilerActivity, profile
@@ -782,11 +996,19 @@ def profile_request(service, audio, video) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile of one request: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+    log(f"profile of one request {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
         f"idle {100 * (1 - busy / wall):.1f}%, {len(kernels)} distinct kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         log(f"  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{e.count:<4d} {e.key[:90]}")
+
+
+def summary(got: dict, base: dict) -> str:
+    """One line of median, first, peak and trunk stage, ``got`` against
+    ``base``."""
+    return (f"median {got['median']:.2f} vs {base['median']:.2f} ms, first {got['first']:.2f} vs "
+            f"{base['first']:.2f} ms, trunk stage {got['stages']['trunk']:.3f} vs {base['stages']['trunk']:.3f} ms, "
+            f"peak {got['peak']:.3f} vs {base['peak']:.3f} GiB")
 
 
 def randomize_biases(task, seed: int) -> None:
@@ -839,6 +1061,7 @@ def main() -> int:
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
+    from acoustic_image_generation_tpu_torch.ops import qgemm as qg
     from acoustic_image_generation_tpu_torch.serving import GenerationService
     from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 
@@ -855,27 +1078,56 @@ def main() -> int:
     task = GenerationTask(GenerationConfig(), device="cuda").init_params(SEED)
     with torch.no_grad():
         kernels = [check_mfcc(mk), check_conv_chain(cc, task), check_conv_chain_backward(cc, task),
-                   check_matmul_stats(cs, task)]
+                   check_matmul_stats(cs, task), check_qgemm(qg)]
     torch.cuda.empty_cache()
 
     phase = time.perf_counter()
     service = GenerationService(task)
-    launches, reqs = serve(service, mk, cc)
-    stage_breakdown(task, *reqs[0])
-    profile_request(service, *reqs[0])
+    per_request = {"mfcc": 1, "conv_chain": 12}  # 1 frontend launch; 6 chains x 2 convs
+    launches, reqs, served = serve(service, {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain}, per_request, "bf16")
+    served["stages"] = stage_breakdown(task, *reqs[0], "bf16")
+    profile_request(service, *reqs[0], "bf16")
     check_against_cpu()
     del service, task, reqs
     torch.cuda.empty_cache()
     log(f"phase serving: {time.perf_counter() - phase:.1f} s")
 
     phase = time.perf_counter()
-    launches.update(conv_chain_backward=train((mk, cc, cs))["conv_chain_backward"])
+    chain = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward}
+    per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 12 + 12 + 11}
+    launches["conv_chain_backward"] = train(chain, per_step, "bf16")[0]["conv_chain_backward"]
     torch.cuda.empty_cache()
     check_train_against_cpu()
     log(f"phase training: {time.perf_counter() - phase:.1f} s")
     phase = time.perf_counter()
     launches["matmul_stats"] = check_fused_bn_stats(cs)
     log(f"phase fused_bn_stats: {time.perf_counter() - phase:.1f} s")
+
+    # the int8 frozen trunk: BN folded, W8A8, every 1x1 conv on qgemm_s8
+    int8 = dict(trunk_bn="frozen", trunk_quant="int8", fused_qgemm=True)
+    phase = time.perf_counter()
+    check_int8_trunk(qg)
+    torch.cuda.empty_cache()
+    log(f"phase int8 trunk: {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    task = GenerationTask(GenerationConfig(**int8), device="cuda").init_params(SEED)
+    service = GenerationService(task)  # calibrated from its first request
+    counters = {"qgemm_s8": qg.qgemm_s8, "conv_chain": cc.conv_chain, "mfcc": mk.mfcc}
+    got, reqs, served_q = serve(service, counters, dict(per_request, qgemm_s8=36), "int8")
+    launches["qgemm_s8"] = got["qgemm_s8"]
+    served_q["stages"] = stage_breakdown(task, *reqs[0], "int8", qtrunk=service.qtrunk)
+    profile_request(service, *reqs[0], "int8")
+    log("serving int8 beside bf16, same run: " + summary(served_q, served))
+    del service, task, reqs
+    torch.cuda.empty_cache()
+    log(f"phase int8 serving: {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    trained_q = train(dict(chain, qgemm_s8=qg.qgemm_s8), dict(per_step, qgemm_s8=36), "int8", **int8)[1]
+    torch.cuda.empty_cache()
+    trained_f = train(chain, per_step, "bf16 frozen trunk", trunk_bn="frozen")[1]
+    torch.cuda.empty_cache()
+    log("train int8 beside the bf16 frozen trunk, same run: " + summary(trained_q, trained_f))
+    log(f"phase int8 training: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from acoustic_image_generation_tpu_torch import resolve_device
+from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
+from acoustic_image_generation_tpu_torch.ops import qgemm
 from acoustic_image_generation_tpu_torch.serving import GenerationService
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask, no_tf32
 
@@ -40,7 +42,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) > 15
+    assert int(count) >= 32  # every module of the package, subpackages included
     assert bad == "[]"
 
 
@@ -52,7 +54,36 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1)))
+    int8 = GenerationConfig(resnet_units=(1, 1, 1, 1), trunk_bn="frozen", trunk_quant="int8", fused_qgemm=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationTask(int8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationTask(int8, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the service runs where its task runs: an int8 task on the CPU serves there
+    service = GenerationService(GenerationTask(int8, device="cpu"))
+    assert service.device == torch.device("cpu") and service.qtrunk is None
+    with pytest.raises(ValueError, match="trunk_quant"):
+        GenerationService(GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1)), device="cpu"),
+                          qtrunk=QuantTrunk(((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 1))))
+
+
+def test_qgemm_s8_runs_its_plain_version_on_the_cpu_only():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-127, 128, (40, 64), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (32, 64), generator=g, dtype=torch.int8)
+    res = torch.randint(-127, 128, (40, 32), generator=g, dtype=torch.int8)
+    factor, bias = torch.rand(32, generator=g) * 1e-3, torch.randn(32, generator=g)
+    args = (x, w, factor, bias, torch.tensor(9.0))
+    kw = dict(relu=True, residual=res, residual_amax=torch.tensor(2.0))
+    launches = qgemm.qgemm_s8.launches
+    assert torch.equal(qgemm.qgemm_s8(*args, **kw), qgemm.qgemm_s8_reference(*args, **kw))
+    assert qgemm.qgemm_s8.launches == launches
+    meta = [t.to("meta") if isinstance(t, torch.Tensor) else t for t in args]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        qgemm.qgemm_s8(*meta, relu=True)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        qgemm.qgemm_s8(x, w.to("meta"), factor, bias, torch.tensor(9.0), relu=True)
 
 
 def test_service_checks_requests():
