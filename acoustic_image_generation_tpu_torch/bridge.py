@@ -1,16 +1,18 @@
-"""Move the JAX package's generation variables into the port's modules and
-back.
+"""Move the JAX package's variables into the port's modules and back.
 
 ``load_flax(task, params, batch_stats)`` takes the trees that the JAX
-``GenerationTask.init_variables`` returns (or a checkpoint's), as nested
-dicts of numpy arrays: ``params = {"resnet": ..., "generator": ...}``,
-``batch_stats = {"resnet": ...}``. Module paths of the port mirror the flax
+task's ``init_variables`` returns (or a checkpoint's), as nested dicts of
+numpy arrays: for ``GenerationTask`` ``params = {"resnet": ...,
+"generator": ...}``, ``batch_stats = {"resnet": ...}``; for ``EmbedTask``
+``params = {"acoustic": ..., "audio": ..., "video": ...}``, ``batch_stats =
+{"audio": ..., "video": ...}``. Module paths of the port mirror the flax
 scopes, and the layouts change as follows:
 
 - conv kernels: HWIO -> OIHW;
 - Dense kernels: (in, out) -> (out, in);
 - ``ConvTransposeTF`` kernels: HWIO -> (in, out, kh, kw), not flipped;
-- BN: ``scale``/``bias`` params, ``mean``/``var`` batch stats;
+- BN: ``scale``/``bias`` params, ``mean``/``var`` batch stats, under the
+  trunk's ``.../BatchNorm`` scope or a UNet's ``bn_i``/``bn_pool_n``;
 - chain convs: HWIO -> the kernel's packed (9*Ci, Co), once, here;
 - trunk quirk: the fixed-pad convs (the root ``conv1`` and ``conv2`` of each
   stride-2 unit) keep ``kernel`` directly under their scope, every other
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch.models.blocks import ChainConv
-from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF, Dense
+from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, Conv2d, ConvTransposeTF, Dense
 from acoustic_image_generation_tpu_torch.models.quant import QLayer, QuantTrunk
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN
 
@@ -76,19 +78,23 @@ _INVERSE = {
 def targets(task: torch.nn.Module):
     """(port tensor, collection, flax path, layout transform) for every
     weight of ``task``."""
+    def batch_norm(bn, path):
+        return [
+            (bn.weight, "params", path + ("scale",), _same),
+            (bn.bias, "params", path + ("bias",), _same),
+            (bn.running_mean, "batch_stats", path + ("mean",), _same),
+            (bn.running_var, "batch_stats", path + ("var",), _same),
+        ]
+
     out = []
+    in_convbn = {id(m.bn) for m in task.modules() if isinstance(m, ConvBN)}
     for name, m in task.named_modules():
         p = tuple(name.split("."))
         if isinstance(m, ConvBN):
             kpath = p + (("kernel",) if m.fixed_pad else ("conv", "kernel"))
-            bn = p + ("BatchNorm",)
-            out += [
-                (m.weight, "params", kpath, _hwio_to_oihw),
-                (m.bn.weight, "params", bn + ("scale",), _same),
-                (m.bn.bias, "params", bn + ("bias",), _same),
-                (m.bn.running_mean, "batch_stats", bn + ("mean",), _same),
-                (m.bn.running_var, "batch_stats", bn + ("var",), _same),
-            ]
+            out += [(m.weight, "params", kpath, _hwio_to_oihw)] + batch_norm(m.bn, p + ("BatchNorm",))
+        elif isinstance(m, BatchNorm) and id(m) not in in_convbn:
+            out += batch_norm(m, p)
         elif isinstance(m, (Conv2d, ConvTransposeTF, Dense, ChainConv)):
             fn = {
                 Conv2d: _hwio_to_oihw,

@@ -1,12 +1,14 @@
-"""Device preprocessing of raw frames, the serving subset.
+"""Device preprocessing of raw frames.
 
 Counterpart of ``acoustic_image_generation_tpu/data/preprocess.py``:
 
 - acoustic: per-frame min-max over (H, W, C);
 - MFCC: the frontend (``ops.mfcc_kernel.mfcc``: the fused CUDA kernel on
   the card, its plain version on the CPU), then per-frame min-max over the
-  12 coefficients;
-- video: BGR channel flip, then /255.
+  12 coefficients; skipped (``mfcc=False``) for a task that does not read
+  it, where JAX's jitted step drops it as dead code;
+- video: BGR channel flip, then /255;
+- action and location labels, one per frame, as int32.
 
 The Butterworth "filtered" branch only feeds the correspondence
 augmentation, a training feature; it comes with the training slice.
@@ -25,9 +27,11 @@ class Batch(NamedTuple):
     """Model-ready frames (leading axis = frames)."""
 
     audio: torch.Tensor  # (N, 1024) float32 waveform
-    mfcc: torch.Tensor  # (N, 12) in [0, 1]
+    mfcc: torch.Tensor | None  # (N, 12) in [0, 1]; None when skipped
     video: torch.Tensor  # (N, 224, 298, 3) in [0, 1]
     acoustic: torch.Tensor | None = None  # (N, 36, 48, C) in [0, 1]
+    action: torch.Tensor | None = None  # (N,) int32
+    location: torch.Tensor | None = None  # (N,) int32
 
 
 def minmax_frame(x: torch.Tensor, dims) -> torch.Tensor:
@@ -53,8 +57,11 @@ def preprocess_batch(
     audio_raw: torch.Tensor,  # (N, 1024) int32
     video_raw: torch.Tensor,  # (N, 224, 298, 3) uint8
     acoustic_raw: torch.Tensor | None = None,  # (N, 36, 48, C)
+    action: torch.Tensor | None = None,  # (N,) int
+    location: torch.Tensor | None = None,  # (N,) int
     *,
     compute_filtered: bool = False,
+    compute_mfcc: bool = True,
 ) -> Batch:
     """Raw decoded frames -> model-ready batch."""
     if compute_filtered:
@@ -62,11 +69,14 @@ def preprocess_batch(
             "the Butterworth 'filtered' MFCC branch is not ported yet"
         )
     wav = audio_raw.to(torch.float32)
+    label = lambda t: None if t is None else t.to(torch.int32)
     return Batch(
         audio=wav,
-        mfcc=normalize_mfcc(mfcc(wav.contiguous())),
+        mfcc=normalize_mfcc(mfcc(wav.contiguous())) if compute_mfcc else None,
         video=normalize_video(video_raw),
         acoustic=None if acoustic_raw is None else normalize_acoustic(acoustic_raw),
+        action=label(action),
+        location=label(location),
     )
 
 

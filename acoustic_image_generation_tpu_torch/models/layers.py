@@ -7,6 +7,8 @@ device, as flax's ``param_dtype=float32``; each module computes in its
 ``dtype`` and casts the masters to it in ``forward``. In torch layout:
 
 - ``Conv2d``: OIHW weight, bias (flax ``nn.Conv``: HWIO kernel);
+- ``BatchNorm``: weight, bias, running_mean, running_var (flax: scale,
+  bias; batch_stats mean, var);
 - ``Dense``: ``nn.Linear``, weight (out, in) (flax: (in, out));
 - ``ConvTransposeTF``: weight (in, out, kh, kw) (flax: HWIO, unflipped).
 
@@ -21,6 +23,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_xla, conv_transpose_tf
 
@@ -75,6 +78,66 @@ class Conv2d(nn.Module):
         return conv2d_xla(
             x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding
         )
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last (channel) axis of NHWC, params
+    and statistics in f32. ``momentum`` is flax's, the weight of the running
+    average (torch's ``momentum`` is one minus it): 0.997 with eps 1e-5 in
+    the ResNet trunk, 0.99 with eps 1e-3 in the UNets
+    (``tf.layers.batch_normalization``'s defaults).
+
+    Train mode (``forward(x, train=True)``) follows flax: statistics in f32
+    over (N, H, W) with the fast variance ``max(E[x^2] - E[x]^2, 0)``, the
+    biased batch variance in the running average, updated in place, and the
+    output in ``x``'s dtype. ``F.batch_norm(training=True)`` would put the
+    unbiased variance in the running average, so it is not used."""
+
+    def __init__(self, channels, eps: float, momentum: float, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        f32 = dict(device=device, dtype=torch.float32)
+        self.weight = nn.Parameter(torch.empty((channels,), **f32))
+        self.bias = nn.Parameter(torch.empty((channels,), **f32))
+        self.register_buffer("running_mean", torch.empty((channels,), **f32))
+        self.register_buffer("running_var", torch.empty((channels,), **f32))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Running averages <- momentum * running + (1 - momentum) * batch."""
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            y = F.batch_norm(
+                x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
+                self.weight, self.bias, training=False, eps=self.eps,
+            )
+            return y.permute(0, 2, 3, 1)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
+        self.update(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+    def forward_stats(self, y: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        """Train mode with statistics computed elsewhere, in ``y``'s dtype
+        (JAX's ``_TrainBN``)."""
+        self.update(mean.detach(), var.detach())
+        dt = y.dtype
+        inv = (self.weight * torch.rsqrt(var + self.eps)).to(dt)
+        return (y - mean.to(dt)) * inv + self.bias.to(dt)
 
 
 class Dense(nn.Linear):

@@ -16,11 +16,9 @@ Input (N,224,298,3) -> 112x149 -> max-pool 3/2 VALID 55x74 -> 28x37 ->
 14x19 -> conv_map 12x16x12. Module names mirror the flax scopes
 (``block2_unit_4``, ``shortcut``, ``conv_map``).
 
-Train mode follows flax's BatchNorm: statistics in f32 over (N, H, W) with
-the fast variance ``max(E[x^2] - E[x]^2, 0)``, the biased batch variance in
-the running average, ``running = 0.997*running + 0.003*batch``, eps 1e-5.
-``F.batch_norm(training=True)`` would put the unbiased variance in the
-running average, so it is not used. Options, as in JAX:
+Train mode follows flax's BatchNorm (``layers.BatchNorm``): statistics in
+f32, the biased batch variance in the running average,
+``running = 0.997*running + 0.003*batch``, eps 1e-5. Options, as in JAX:
 
 - ``freeze_trunk``: the trunk runs under ``torch.no_grad()`` (JAX's
   ``stop_gradient`` before ``conv_map``): no trunk activations are kept,
@@ -41,7 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from acoustic_image_generation_tpu_torch.models.layers import he_truncated_normal
+from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, he_truncated_normal
 from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_stats
 from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_same_fixed_pad, conv2d_xla
 
@@ -49,56 +47,6 @@ from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_same_fixed_
 RESNET50_BLOCKS = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 1))
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.997
-
-
-class BatchNorm(nn.Module):
-    """BN over the last (channel) axis of NHWC, params and statistics in
-    f32 (see the module docstring for train mode)."""
-
-    def __init__(self, channels, eps, *, device=None):
-        super().__init__()
-        self.eps = eps
-        f32 = dict(device=device, dtype=torch.float32)
-        self.weight = nn.Parameter(torch.empty((channels,), **f32))
-        self.bias = nn.Parameter(torch.empty((channels,), **f32))
-        self.register_buffer("running_mean", torch.empty((channels,), **f32))
-        self.register_buffer("running_var", torch.empty((channels,), **f32))
-
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-            self.running_mean.zero_()
-            self.running_var.fill_(1.0)
-
-    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """Running averages <- 0.997 * running + 0.003 * batch."""
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            y = F.batch_norm(
-                x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
-                self.weight, self.bias, training=False, eps=self.eps,
-            )
-            return y.permute(0, 2, 3, 1)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
-        self.update(mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(x.dtype)
-
-    def forward_stats(self, y: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
-        """Train mode with statistics computed elsewhere, in ``y``'s dtype
-        (JAX's ``_TrainBN``)."""
-        self.update(mean.detach(), var.detach())
-        dt = y.dtype
-        inv = (self.weight * torch.rsqrt(var + self.eps)).to(dt)
-        return (y - mean.to(dt)) * inv + self.bias.to(dt)
 
 
 class ConvBN(nn.Module):
@@ -118,7 +66,7 @@ class ConvBN(nn.Module):
             torch.empty((out_ch, in_ch, *kernel), device=device, dtype=torch.float32)
             .contiguous(memory_format=torch.channels_last)
         )
-        self.bn = BatchNorm(out_ch, BN_EPS, device=device)
+        self.bn = BatchNorm(out_ch, BN_EPS, BN_MOMENTUM, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _, i, kh, kw = self.weight.shape

@@ -1,9 +1,24 @@
-"""``UNetAcResNet``: the AAAI'21 generator, tiled-MFCC map + ResNet50
-``conv_map`` feature -> (N,36,48,12) acoustic image.
+"""The acoustic-image UNets (36x48xC in and out), on NHWC.
 
-Counterpart of ``acoustic_image_generation_tpu/models/unet_ac.py::
-UNetAcResNet`` with ``skips`` in {0, 1, 2} and ``embedding`` (deterministic
-AE). The wiring, all on NHWC:
+Counterpart of ``acoustic_image_generation_tpu/models/unet_ac.py``:
+
+``UNetAcoustic``, the skip-less acoustic VAE of the embedding family
+(``features``, ``encode``, ``from_features``, ``decode``, ``forward``; the
+projection family's ``external_latent`` is not ported):
+
+    layer1  conv pair C->128->128 @36x48, then a stride-3 pool conv -> 12x16
+    layer3  conv pair 128->133->133 @12x16
+    vae     (12,16) VALID mean/std convs -> (N, latent_dim)
+    dense   z -> 2304 -> ReLU -> reshape (N,12,16,12); conv_dec 3x3 -> 133
+    upsample_1  TF VALID transposed conv k2 s3 -> 36x48
+    layer4, layer5  conv pairs -> 128; final 3x3 conv -> C, sigmoid
+
+No BN: every conv pair runs on ``conv_chain`` (JAX's runs on plain convs,
+``fused=False``; the two are identical in f32).
+
+``UNetAcResNet``, the AAAI'21 generator: tiled-MFCC map + ResNet50
+``conv_map`` feature -> (N,36,48,12) acoustic image, with ``skips`` in
+{0, 1, 2} and ``embedding`` (deterministic AE). The wiring:
 
     layer1  conv pair 12->128->128 @36x48, then a stride-3 pool conv -> 12x16
     layer2  conv pair 128->133->133 @12x16
@@ -37,12 +52,60 @@ from acoustic_image_generation_tpu_torch.models.layers import (
 
 
 class VaeOutput(NamedTuple):
-    output: torch.Tensor  # sigmoid reconstruction (N,36,48,12)
+    output: torch.Tensor  # sigmoid reconstruction, the input's shape
     z: torch.Tensor
     mean: torch.Tensor
     std: torch.Tensor | None  # None in embedding/AE mode
-    features: torch.Tensor  # the concatenated bottleneck (N,12,16,145)
+    features: torch.Tensor  # the bottleneck feature map
     logits: torch.Tensor
+
+
+class UNetAcoustic(nn.Module):
+    """Skip-less acoustic-image VAE (scope ``UNetAcoustic``)."""
+
+    def __init__(self, channels=NUM_MFCC, latent_dim=LATENT_DIM, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.layer1 = ConvConvPool(channels, (128, 128), pool=True, pool_strides=(3, 3), **kw)
+        self.layer3 = ConvConvPool(128, (133, 133), **kw)
+        self.vae = VaeHead(133, latent_dim=latent_dim, **kw)
+        self.dense = Dense(latent_dim, 12 * 16 * 12, **kw)
+        self.conv_dec = Conv2d(12, 133, (3, 3), **kw)
+        self.upsample_1 = ConvTransposeTF(133, 128, (2, 2), (3, 3), **kw)
+        self.layer4 = ConvConvPool(128, (128, 128), **kw)
+        self.layer5 = ConvConvPool(128, (128, 128), **kw)
+        self.final = Conv2d(128, channels, (3, 3), **kw)
+
+    def features(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """The (N,12,16,133) bottleneck feature map (``train`` means nothing
+        without BN)."""
+        _, pool1 = self.layer1(x)
+        return self.layer3(pool1)
+
+    def encode(self, x, *, eps=None, generator=None):
+        """Encoder half: ``(z, mean, std, features)``."""
+        conv2 = self.features(x)
+        z, mean, std = self.vae(conv2, eps=eps, generator=generator)
+        return z, mean, std, conv2
+
+    def _decode_logits(self, z: torch.Tensor) -> torch.Tensor:
+        net = F.relu(self.dense(z)).reshape(-1, 12, 16, 12)
+        net = F.relu(self.conv_dec(net))
+        up1 = self.upsample_1(net)
+        return self.final(self.layer5(self.layer4(up1)))
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self._decode_logits(z))
+
+    def from_features(self, conv2, *, eps=None, generator=None) -> VaeOutput:
+        """VAE head and decoder over a bottleneck feature map."""
+        z, mean, std = self.vae(conv2, eps=eps, generator=generator)
+        logits = self._decode_logits(z)
+        return VaeOutput(torch.sigmoid(logits), z, mean, std, conv2, logits)
+
+    def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        del train  # no BN in this model
+        return self.from_features(self.features(x), eps=eps, generator=generator)
 
 
 class UNetAcResNet(nn.Module):
@@ -52,7 +115,7 @@ class UNetAcResNet(nn.Module):
             raise ValueError(f"skips must be 0, 1 or 2, got {skips}")
         kw = dict(device=device, dtype=dtype)
         self.skips = skips
-        self.layer1 = ConvConvPool(NUM_MFCC, (128, 128), pool=True, **kw)
+        self.layer1 = ConvConvPool(NUM_MFCC, (128, 128), pool=True, pool_strides=(3, 3), **kw)
         self.layer2 = ConvConvPool(128, (133, 133), **kw)
         self.vae = VaeHead(133 + 12, embedding=embedding, **kw)
         self.dense = Dense(LATENT_DIM, 12 * 16 * 12, **kw)

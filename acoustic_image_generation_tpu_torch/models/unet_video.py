@@ -1,0 +1,85 @@
+"""``UNetVideo``: the video-frame VAE of the embedding family, on NHWC.
+
+Counterpart of ``acoustic_image_generation_tpu/models/unet_video.py::
+UNetVideo``: a (N,224,298,3) frame -> BN conv-pair stages with VALID
+strided pool convs -> (12,16,512) -> VAE head -> TF-rule transposed convs
+back to 224x298 -> 3-channel sigmoid. BN everywhere (momentum .99, eps
+1e-3), no skip concats:
+
+    layer1  3->32->32 @224x298, pool 3x3/3 VALID -> 74x99
+    layer2  128 @74x99, pool 3x3/2 VALID -> 36x49
+    layer3  256 @36x49, pool (2,3)/3 VALID -> 12x16
+    layer5  512 @12x16 (the features)
+    vae     (12,16) VALID mean/std -> (N, latent_dim)
+    dense   z -> 9600 -> ReLU -> (N,12,16,50); conv_dec 3x3 -> 512
+    upsample_6  (3,4)/3 -> 36x49, layer6, layer7 (256)
+    upsample_8  (4,3)/2 -> 74x99, layer8, layer9 (128)
+    upsample_10 (5,4)/3 -> 224x298, layer10, layer11 (32); final 1x1 -> 3
+
+``UNetEnergy`` and ``UNetVideoSkip`` are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from acoustic_image_generation_tpu_torch.models.blocks import ConvConvPool, VaeHead
+from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF, Dense
+from acoustic_image_generation_tpu_torch.models.unet_ac import VaeOutput
+
+
+class UNetVideo(nn.Module):
+    """Scope ``UNet``: video VAE."""
+
+    def __init__(self, latent_dim=1024, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+
+        def ccp(in_ch, filters, **extra):
+            return ConvConvPool(in_ch, filters, batch_norm=True, **extra, **kw)
+
+        self.layer1 = ccp(3, (32, 32), pool=True, pool_strides=(3, 3), pool_padding="VALID")
+        self.layer2 = ccp(32, (128, 128), pool=True, pool_padding="VALID")
+        self.layer3 = ccp(128, (256, 256), pool=True, pool_strides=(3, 3), pool_padding="VALID",
+                          pool_kernel=(2, 3))
+        self.layer5 = ccp(256, (512, 512))
+        self.vae = VaeHead(512, latent_dim=latent_dim, **kw)
+        self.dense = Dense(latent_dim, 12 * 16 * 50, **kw)
+        self.conv_dec = Conv2d(50, 512, (3, 3), **kw)
+        self.upsample_6 = ConvTransposeTF(512, 256, (3, 4), (3, 3), **kw)
+        self.layer6 = ccp(256, (256, 256))
+        self.layer7 = ccp(256, (256, 256))
+        self.upsample_8 = ConvTransposeTF(256, 128, (4, 3), (2, 2), **kw)
+        self.layer8 = ccp(128, (128, 128))
+        self.layer9 = ccp(128, (128, 128))
+        self.upsample_10 = ConvTransposeTF(128, 32, (5, 4), (3, 3), **kw)
+        self.layer10 = ccp(32, (32, 32))
+        self.layer11 = ccp(32, (32, 32))
+        self.final = Conv2d(32, 3, (1, 1), **kw)
+
+    def features(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """The (N,12,16,512) feature map: 224x298 -> 74x99 -> 36x49 -> 12x16."""
+        _, pool1 = self.layer1(x, train)
+        _, pool2 = self.layer2(pool1, train)
+        _, pool3 = self.layer3(pool2, train)
+        return self.layer5(pool3, train)
+
+    def _decode_logits(self, z: torch.Tensor, train: bool) -> torch.Tensor:
+        net = F.relu(self.dense(z)).reshape(-1, 12, 16, 50)
+        up = F.relu(self.conv_dec(net))
+        for n in (6, 8, 10):
+            up = getattr(self, f"upsample_{n}")(up)
+            up = getattr(self, f"layer{n}")(up, train)
+            up = getattr(self, f"layer{n + 1}")(up, train)
+        return self.final(up)
+
+    def from_features(self, conv5, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        z, mean, std = self.vae(conv5, eps=eps, generator=generator)
+        logits = self._decode_logits(z, train)
+        return VaeOutput(torch.sigmoid(logits), z, mean, std, conv5, logits)
+
+    def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        conv5 = self.features(x, train=train)
+        return self.from_features(conv5, eps=eps, generator=generator, train=train)

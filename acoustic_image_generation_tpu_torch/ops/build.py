@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aig_torch_kernels"
-KERNELS = ("mfcc", "conv_chain", "matmul_stats", "qgemm_s8")
+KERNELS = ("mfcc", "conv_chain", "matmul_stats", "qgemm_s8", "stft")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -48,12 +48,14 @@ def conv_nhwc(x, weight, bias, stride, pads) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d_xla(x, weight, bias, stride: int, padding: str) -> torch.Tensor:
-    """NHWC conv with XLA's "SAME" or "VALID" padding."""
+def conv2d_xla(x, weight, bias, stride: int | tuple[int, int], padding: str) -> torch.Tensor:
+    """NHWC conv with XLA's "SAME" or "VALID" padding; ``stride`` an int or
+    (sh, sw)."""
     if padding == "VALID":
         return conv_nhwc(x, weight, bias, stride, ((0, 0), (0, 0)))
     kh, kw = weight.shape[2:]
-    pads = (same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride))
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    pads = (same_pads(x.shape[1], kh, sh), same_pads(x.shape[2], kw, sw))
     return conv_nhwc(x, weight, bias, stride, pads)
 
 

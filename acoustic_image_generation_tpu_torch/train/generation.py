@@ -91,6 +91,8 @@ class GenerationConfig:
 
 
 class GenerationTask(nn.Module):
+    reads_mfcc = True  # the generator's input: the trainer's batches compute it
+
     def __init__(self, config: GenerationConfig = GenerationConfig(), *, device=None):
         super().__init__()
         if config.compute_dtype not in _DTYPES:
@@ -208,9 +210,11 @@ class GenerationTask(nn.Module):
         metrics["loss"] = total
         return total, metrics
 
-    def loss(self, batch: Batch, *, eps=None, generator=None, trunk_feat=None, qtrunk=None):
+    def loss(self, batch: Batch, *, eps=None, generator=None, trunk_feat=None, qtrunk=None, moddrop=None):
         """Train-mode forward and objective: ``(total, metrics)``. The BN
-        running averages are updated in place."""
+        running averages are updated in place. ``moddrop`` is the embedding
+        task's and means nothing here."""
+        del moddrop
         out = self._forward(batch.mfcc, batch.video, train=True, eps=eps, generator=generator,
                             trunk_feat=trunk_feat, qtrunk=qtrunk)
         return self.objective(out, batch)

@@ -37,7 +37,15 @@ imports nothing of JAX. Phases, each fatal on failure:
    train steps (calibrated from the first batch) with launch counts, beside
    the bf16 requests of phase 3 and five bf16 steps with the same frozen
    trunk;
-9. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+9. the embedding family (three VAEs aligned by a batch-hard triplet
+   loss): the ``stft`` kernel against its plain version at 8 and 32
+   seconds (checked with phase 2's kernels); four full-width bf16 requests
+   of 96 frames (8 seconds) through ``EmbeddingService`` with launch counts,
+   a stage breakdown and one profiled request, and a CUDA-vs-CPU f32 check;
+   five full-width bf16 train steps of 32 clips x 12 frames (the JAX
+   bench's embed batch) with launch counts, a stage breakdown and one
+   profiled step, then two f32 steps on CUDA against the CPU;
+10. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
@@ -97,6 +105,30 @@ TRUNK_TOL = dict(rel=0.05, quanta=8)
 FUSED_TOL = dict(rel=0.1, quanta=16)
 QGEMM_FRAMES = (FRAMES, TRAIN_FRAMES)
 A_AMAX, RES_AMAX = 3.7, 2.2
+EMBED_SECONDS = FRAMES // 12  # one embedding request: 8 seconds
+EMBED_CLIPS = 32  # the JAX bench's embed train batch (bench.py:436-460): 32 clips of 1 second
+# stft against its plain version, as the largest error over the peak
+# magnitude. IEEE f32 on both sides, summed in another order over 246
+# products of int16-range samples: about 1e-7 of the peak each. The limit
+# must stay below what the plain version with TF32 reads against a float64
+# witness (checked in the run; TF32 keeps 10 mantissa bits, some 3e-4).
+STFT_TOL = 1e-5
+# CUDA against the CPU, f32: the embedding latents of eval-mode encoders,
+# within 1e-4 of the largest latent; the first train step's gradients in L2,
+# the acoustic VAE (no BN) per tensor within 1e-3, the audio and video VAEs
+# per VAE within 5e-2 (their train-mode BNs divide by fast-variance batch
+# statistics, which magnify rounding: JAX eager against JAX jitted reads
+# 3e-2 on one audio tensor on the CPU). The biases of the convs a train-mode
+# BN follows have a true gradient of 0 and are left out.
+# The two steps' updates (new - initial) per VAE in L2, relative: Adam
+# normalizes each entry's step by its own gradient history, so an entry
+# whose gradient is at rounding-noise level takes a full +-lr step with the
+# sign the noise gives it. The acoustic VAE within 0.1; the audio and video
+# VAEs, whose BN-amplified noise flips many such entries, within 0.5 and
+# 0.3 (read 0.324 and 0.197 on an H100, 2 s, 2 steps).
+EMBED_PATH_TOL = 1e-4
+EMBED_GRAD_TOL = dict(acoustic=1e-3, audio=5e-2, video=5e-2)
+EMBED_UPDATE_TOL = dict(acoustic=0.1, audio=0.5, video=0.3)
 
 
 def log(*parts) -> None:
@@ -174,28 +206,37 @@ def check_mfcc(mk) -> dict:
     )
 
 
-def chain_layers(task, frames=FRAMES):
-    """(name, input (N,H,W,Ci) shape, packed f32 master weights) of every
-    conv chain the generator runs, at ``frames`` frames."""
-    gen = task.generator
-    sizes = {"layer1": (36, 48), "layer2": (12, 16), "layer4": (12, 16), "layer5": (12, 16),
-             "layer6": (36, 48), "layer7": (36, 48)}
+# (H, W) of every no-BN ConvConvPool stack, which runs on conv_chain: the
+# generator's six and the embedding task's acoustic VAE's four
+GEN_CHAINS = {"layer1": (36, 48), "layer2": (12, 16), "layer4": (12, 16), "layer5": (12, 16),
+              "layer6": (36, 48), "layer7": (36, 48)}
+EMBED_CHAINS = {"layer1": (36, 48), "layer3": (12, 16), "layer4": (36, 48), "layer5": (36, 48)}
+
+
+def chain_layers(model, sizes: dict, frames: int):
+    """(name, input (N,H,W,Ci) shape, packed f32 master weights) of the
+    ConvConvPool stacks of ``model`` that ``sizes`` names, at ``frames``
+    frames."""
     out = []
     for name, (h, w) in sizes.items():
-        block = getattr(gen, name)
+        block = getattr(model, name)
         convs = [getattr(block, f"conv_{i + 1}") for i in range(block.n)]
         ci = convs[0].weight.shape[0] // 9
         out.append((name, (frames, h, w, ci), [c.weight.detach() for c in convs]))
     return out
 
 
-def check_conv_chain(cc, task) -> dict:
+def check_conv_chain(cc, chains, dtype, timed=True) -> tuple[float, dict]:
+    """The forward kernel against its plain version on ``chains`` in bf16
+    and f32, non-zero biases; with ``timed``, kernel, plain and cuDNN times
+    in ``dtype``. Returns the largest error in ``dtype`` and the summed
+    times, bytes and operations."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
     err_main = 0.0
-    for name, shape, ws in chain_layers(task):
+    for name, shape, ws in chains:
         relu = (True,) * len(ws)
         # non-zero biases (init_params zeroes them) so the bias add is checked
         bs = [0.1 * torch.randn(w.shape[1], generator=g, device="cuda") for w in ws]
@@ -205,9 +246,11 @@ def check_conv_chain(cc, task) -> dict:
             err = compare(f"conv_chain {name} {str(dt)[6:]} {tuple(shape)}",
                           cc.conv_chain(x, wd, bs, relu), cc.conv_chain_reference(x, wd, bs, relu),
                           CHAIN_TOL[dt])
-            if dt != task.dtype:
+            if dt != dtype:
                 continue
             err_main = max(err_main, err)
+            if not timed:
+                continue
             w_oihw = [cc.unpack_oihw(w).contiguous(memory_format=torch.channels_last) for w in wd]
             b_dt = [b.to(dt) for b in bs]
 
@@ -229,17 +272,22 @@ def check_conv_chain(cc, task) -> dict:
             log(f"time conv_chain {name} {tuple(shape)} -> {wd[-1].shape[1]}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, cudnn {lib:.4f} ms, bound {b:.4f} ms ({by}), "
                 f"{flops / 1e9:.2f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s")
-            for k, v in dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, flops=flops,
-                             nbytes=nbytes).items():
+            for k, v in dict(ms=ms, plain_ms=plain, library_ms=lib, flops=flops, nbytes=nbytes).items():
                 tot[k] += v
-    b, by = bound_ms(tot["nbytes"], tot["flops"], task.dtype)
+    return err_main, tot
+
+
+def conv_chain_entry(err: float, tot: dict, dtype) -> dict:
+    """The ``kernels`` line's entry of the conv_chain forward: the
+    generator's chains of one request, timed by ``check_conv_chain``."""
+    b, by = bound_ms(tot["nbytes"], tot["flops"], dtype)
     log(f"time conv_chain all chains of one {FRAMES}-frame request: kernel {tot['ms']:.4f} ms, "
         f"plain {tot['plain_ms']:.4f} ms, cudnn {tot['library_ms']:.4f} ms, bound {b:.4f} ms "
         f"({by}), {tot['flops'] / 1e9:.1f} GFLOP")
     return dict(
         name="conv_chain", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/conv_chain.cu",
         replaces="acoustic_image_generation_tpu/ops/pallas_conv.py:388",
-        max_abs_err=err_main, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
+        max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
         library_ms=tot["library_ms"],
     )
 
@@ -276,19 +324,21 @@ def worst_by_kind(errs: dict) -> dict:
     return out
 
 
-def check_conv_chain_backward(cc, task) -> dict:
-    """The backward kernels at the training shapes, both dtypes, non-zero
-    biases: bf16 against the plain backward, f32 against a float64 witness
-    beside cuDNN's f32 and TF32 readings of the same grads; times in the
-    task's dtype against autograd's backward of the cuDNN chain."""
+def check_conv_chain_backward(cc, chains, dtype, timed=True) -> tuple[float, dict]:
+    """The backward kernels on ``chains`` (a train step's shapes), both
+    dtypes, non-zero biases: bf16 against the plain backward, f32 against a
+    float64 witness beside cuDNN's f32 and TF32 readings of the same grads;
+    with ``timed``, times in ``dtype`` against autograd's backward of the
+    cuDNN chain. Returns the largest error in ``dtype`` and the summed
+    times, bytes and operations."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
     err_main = 0.0
-    for name, shape, ws in chain_layers(task, TRAIN_FRAMES):
+    for name, shape, ws in chains:
         relu = (True,) * len(ws)
-        needs_dx = name != "layer1"  # layer1's input, the MFCC map, needs no grad
+        needs_dx = name != "layer1"  # layer1's input (the MFCC map, an acoustic frame) needs no grad
         bs = [0.1 * torch.randn(w.shape[1], generator=g, device="cuda") for w in ws]
         for dt in (torch.bfloat16, torch.float32):
             x = torch.relu(torch.randn(shape, generator=g, device="cuda")).to(dt)
@@ -325,12 +375,14 @@ def check_conv_chain_backward(cc, task) -> dict:
             bad = [k for k, v in worst.items() if v > tol[k]]
             if bad:
                 raise AssertionError(f"conv_chain_backward {name} {dt}: {bad} outside {tol}")
-            if dt != task.dtype:
+            if dt != dtype:
                 del got, want
                 continue
             err_main = max(err_main, abs_err(got[0], want[0]) if needs_dx else 0.0,
                            *(abs_err(a, b) for a, b in zip(got[1] + got[2], want[1] + want[2])))
             del got, want
+            if not timed:
+                continue
             with torch.enable_grad():  # the yardstick's graph: autograd over cuDNN
                 xl = x.permute(0, 3, 1, 2).detach().requires_grad_(needs_dx)
                 wl = [cc.unpack_oihw(w).contiguous(memory_format=torch.channels_last).requires_grad_()
@@ -359,7 +411,14 @@ def check_conv_chain_backward(cc, task) -> dict:
             for k, v in dict(ms=ms, plain_ms=plain, library_ms=lib, flops=flops, nbytes=nbytes).items():
                 tot[k] += v
             del y, inputs, xl, wl, bl
-    b, by = bound_ms(tot["nbytes"], tot["flops"], task.dtype)
+    return err_main, tot
+
+
+def conv_chain_backward_entry(err: float, tot: dict, dtype) -> dict:
+    """The ``kernels`` line's entry of the conv_chain backward: the
+    generator's chains of one train step, timed by
+    ``check_conv_chain_backward``."""
+    b, by = bound_ms(tot["nbytes"], tot["flops"], dtype)
     log(f"time conv_chain_backward all chains of one {TRAIN_FRAMES}-frame step: kernels {tot['ms']:.3f} ms, "
         f"plain {tot['plain_ms']:.3f} ms, cudnn autograd {tot['library_ms']:.3f} ms, bound {b:.4f} ms "
         f"({by}), {tot['flops'] / 1e9:.1f} GFLOP")
@@ -367,7 +426,7 @@ def check_conv_chain_backward(cc, task) -> dict:
         name="conv_chain_backward", route="cuda",
         source="acoustic_image_generation_tpu_torch/csrc/conv_chain.cu",
         replaces="acoustic_image_generation_tpu/ops/pallas_conv.py:443",
-        max_abs_err=err_main, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
+        max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
         library_ms=tot["library_ms"],
     )
 
@@ -664,7 +723,7 @@ def train(counters: dict, per_step: dict, label: str, **config) -> dict:
         + f", {sum(l == 'train' for l in labels.values())} trained tensors changed, trunk BN statistics "
         + ("moved" if stats_moved else "unchanged"))
     stages = train_stages(trainer, state, raw, label)
-    profile_step(trainer, state, raw, label)
+    profile(lambda: trainer.train_step(state, raw), f"train step {label}")
     return launches, dict(median=steady, first=times[0], peak=peak, stages=stages)
 
 
@@ -705,24 +764,25 @@ def train_stages(trainer, state, raw, label) -> dict:
     return parts
 
 
-def profile_step(trainer, state, raw, label) -> None:
-    """Device time by kernel for one train step under torch.profiler, and
-    the device's idle share of the step's wall time (profiling included)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn, what: str, rows: int = 15) -> None:
+    """Device time by kernel for one call of ``fn`` (a request or a train
+    step) under torch.profiler, and the device's idle share of its wall
+    time (profiling included)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(state, raw)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile of one train step {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"profile of one {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
         f"idle {100 * (1 - busy / wall):.1f}%, {len(kernels)} distinct kernels")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
         ms = e.self_device_time_total / 1e3
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{e.count:<5d} {e.key[:90]}")
 
@@ -982,27 +1042,6 @@ def stage_breakdown(task, audio, video, label, qtrunk=None) -> dict:
     return parts
 
 
-def profile_request(service, audio, video, label) -> None:
-    """Device time by kernel for one request under torch.profiler, and the
-    device's idle share of the request's wall time (profiling included)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        service(audio, video, seed=SEED)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile of one request {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-        f"idle {100 * (1 - busy / wall):.1f}%, {len(kernels)} distinct kernels")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        ms = e.self_device_time_total / 1e3
-        log(f"  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{e.count:<4d} {e.key[:90]}")
-
-
 def summary(got: dict, base: dict) -> str:
     """One line of median, first, peak and trunk stage, ``got`` against
     ``base``."""
@@ -1045,6 +1084,354 @@ def check_against_cpu() -> None:
         raise AssertionError(f"CUDA and CPU serving paths differ by {err}")
 
 
+def check_stft(st) -> dict:
+    """The ``stft`` kernel against its plain version (TF32 off) at an
+    embedding request's 8 seconds and a train step's 32, with a float64
+    witness on the same f32 bases beside it; times of kernel, plain version
+    and the ``torch.stft`` yardstick (cuFFT). Returns the 32-second line of
+    ``kernels``."""
+    import torch.nn.functional as F
+
+    from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    window = torch.hann_window(spec.FRAME_LENGTH, periodic=True, device="cuda")
+    pad = (spec.FFT_LENGTH - spec.FRAME_LENGTH) // 2  # torch centres the window in the frame
+    for seconds in (EMBED_SECONDS, EMBED_CLIPS):
+        x = torch.randint(-(2**15), 2**15, (seconds, spec.SAMPLES_PER_SECOND), generator=g, device="cuda").float()
+        got, want = st.stft(x), st.stft_plain(x)
+        frames = x.double().unfold(-1, spec.FRAME_LENGTH, spec.FRAME_STEP)
+        cos_b, sin_b = (b.double() for b in spec.device_bases(x.device))
+        witness = torch.sqrt(torch.square(frames @ cos_b) + torch.square(frames @ sin_b))
+
+        def library(x=x):
+            return torch.stft(F.pad(x, (pad, pad)), n_fft=spec.FFT_LENGTH, hop_length=spec.FRAME_STEP,
+                              win_length=spec.FRAME_LENGTH, window=window, center=False,
+                              return_complex=True).abs()
+
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = rel_err(st.stft_plain(x), witness)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        err = rel_err(got, want)
+        log(f"check stft {seconds} s ({tuple(x.shape)} -> {tuple(got.shape)}): kernel vs plain {err:.3e} of the "
+            f"peak (tol {STFT_TOL}); against the float64 witness: kernel {rel_err(got, witness):.3e}, plain "
+            f"{rel_err(want, witness):.3e}, plain with TF32 {tf32:.3e}, torch.stft "
+            f"{rel_err(library().transpose(-1, -2), witness):.3e}")
+        if not STFT_TOL < tf32:
+            raise AssertionError(f"stft: the limit {STFT_TOL} does not exclude a TF32 run ({tf32:.2e})")
+        if err > STFT_TOL:
+            raise AssertionError(f"stft {seconds} s: kernel off its plain version by {err:.2e} of the peak")
+        ms = time_ms(lambda: st.stft(x))
+        plain = time_ms(lambda: st.stft_plain(x))
+        lib = time_ms(library)
+        flops = seconds * spec.NUM_FRAMES * spec.FRAME_LENGTH * spec.NUM_BINS * 2 * 2  # two GEMMs
+        nbytes = (x.numel() + got.numel() + 2 * spec.FRAME_LENGTH * spec.NUM_BINS) * 4
+        b, by = bound_ms(nbytes, flops, torch.float32)
+        log(f"time stft {seconds} s: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.stft {lib:.4f} ms, bound "
+            f"{b:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.2f} TFLOP/s")
+    return dict(
+        name="stft", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/stft.cu",
+        replaces="acoustic_image_generation_tpu/ops/pallas_stft.py:77",
+        max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=lib,
+    )
+
+
+def embed_task(compute_dtype: str, device: str):
+    """A full-width ``EmbedTask`` with ``init_params``' distributions from
+    the seed, and biases, BN scales and running statistics drawn away from
+    their initial values (on the CPU, so every device gets the same)."""
+    from acoustic_image_generation_tpu_torch.models.layers import BatchNorm
+    from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
+
+    task = EmbedTask(EmbedConfig(compute_dtype=compute_dtype, seed=SEED), device=device).init_params(SEED)
+    randomize_biases(task, SEED + 14)
+    g = torch.Generator().manual_seed(SEED + 15)
+    with torch.no_grad():
+        for m in task.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.75 + 0.5 * torch.rand(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return task
+
+
+def embed_request(rng, n=FRAMES):
+    """Model-ready f32 frames of one request: acoustic and video in [0, 1],
+    int16-range audio samples."""
+    return (rng.random((n, 36, 48, 12), dtype=np.float32),
+            rng.integers(-(2**15), 2**15, (n, 1024)).astype(np.float32),
+            rng.random((n, 224, 298, 3), dtype=np.float32))
+
+
+def serve_embedding(service, counters: dict, per_request: dict) -> tuple[dict, list, dict]:
+    """REQUESTS embedding requests of FRAMES frames, the launch counts of
+    ``counters`` reset just before and read just after."""
+    rng = np.random.default_rng(SEED + 16)
+    reqs = [embed_request(rng) for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for i, req in enumerate(reqs):
+        t0 = time.perf_counter()
+        z = service(*req, seed=SEED + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for name, t in zip(("acoustic", "audio", "video"), z):
+            if t.shape != (EMBED_SECONDS, service.task.cfg.latent_dim) or not torch.isfinite(t).all():
+                raise AssertionError(f"embedding request {i}: {name} latents {tuple(t.shape)} not finite or misshapen")
+        log(f"embedding request {i}: {FRAMES} frames ({EMBED_SECONDS} s), {times[-1]:.2f} ms, latent norms "
+            + ", ".join(f"{n} {float(t.norm(dim=1).mean()):.4g}" for n, t in zip(("acoustic", "audio", "video"), z)))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"launches over {REQUESTS} embedding requests: {launches} (expected {per_request} per request: "
+        "conv_chain = the acoustic encoder's 2 chains x 2 convs)")
+    for k, v in per_request.items():
+        if launches[k] != v * REQUESTS:
+            raise AssertionError(f"embedding serving {k}: {launches[k]} launches, expected {v * REQUESTS}")
+    steady = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"embedding serving: first request {times[0]:.2f} ms, median of the next {REQUESTS - 1} {steady:.2f} ms, "
+        f"{EMBED_SECONDS / steady * 1e3:.1f} seconds of input/s, peak device memory {peak:.3f} GiB")
+    return launches, reqs, dict(median=steady, first=times[0], peak=peak)
+
+
+def embed_serving_stages(task, req) -> dict:
+    """Device time of each stage of one embedding request, by CUDA events;
+    each encoder stage includes its VAE head."""
+    from acoustic_image_generation_tpu_torch.dsp.spectrogram import SAMPLES_PER_SECOND, resize_frames
+    from acoustic_image_generation_tpu_torch.ops.stft import stft
+
+    names = ("upload", "stft", "resize", "acoustic encoder", "audio encoder", "video encoder")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one reported
+            torch.cuda.synchronize()
+            ev[0].record()
+            ac, audio, video = (torch.from_numpy(a).cuda() for a in req)
+            ev[1].record()
+            spec = stft(audio.reshape(-1, SAMPLES_PER_SECOND))
+            ev[2].record()
+            spec = resize_frames(spec)[..., None]
+            ev[3].record()
+            for i, (model, x) in enumerate(((task.acoustic, ac[::12]), (task.audio, spec), (task.video, video[::12]))):
+                model.vae(model.features(x))
+                ev[4 + i].record()
+            torch.cuda.synchronize()
+    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    log("stages of one embedding request (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f", total {ev[0].elapsed_time(ev[-1]):.3f}")
+    return parts
+
+
+def check_embedding_against_cpu() -> None:
+    """The same f32 weights (non-zero biases and BN statistics) and noise
+    through ``EmbeddingService`` on CUDA (the stft and conv_chain kernels)
+    and on the CPU (plain versions), 2 seconds."""
+    from acoustic_image_generation_tpu_torch.serving import EmbeddingService
+
+    rng = np.random.default_rng(SEED + 17)
+    req = embed_request(rng, n=24)
+    eps = rng.standard_normal((2, 128)).astype(np.float32)
+    outs = [[z.cpu() for z in EmbeddingService(embed_task("float32", dev))(*req, seed=SEED, eps=eps)]
+            for dev in ("cuda", "cpu")]
+    errs = {name: rel_err(a, b) for name, a, b in zip(("acoustic", "audio", "video"), *outs)}
+    log("check embedding serving f32 cuda vs cpu (2 s): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of the largest latent (tol {EMBED_PATH_TOL})")
+    if max(errs.values()) > EMBED_PATH_TOL:
+        raise AssertionError(f"CUDA and CPU embedding latents differ: {errs}")
+
+
+def embed_train_batch(rng, clips, amplitude=2**15):
+    """One synthetic batch of 1-second clips, as the JAX bench makes its
+    embed batch: actions over 10 classes, location 0."""
+    f = (clips, 12)
+    return dict(
+        acoustic=rng.random((*f, 36, 48, 12), dtype=np.float32),
+        audio=rng.integers(-amplitude, amplitude, (*f, 1024)).astype(np.int32),
+        video=rng.integers(0, 256, (*f, 224, 298, 3)).astype(np.uint8),
+        action=rng.integers(0, 10, (clips,)).astype(np.int32),
+        location=np.zeros((clips,), np.int32),
+    )
+
+
+def modality_mse(task, batch) -> dict:
+    """Train-mode reconstruction MSE of each VAE on ``batch``, with the BN
+    running averages put back afterwards."""
+    from acoustic_image_generation_tpu_torch.losses.recon import mse_tf
+    from acoustic_image_generation_tpu_torch.train.generation import no_tf32
+
+    saved = {n: b.clone() for n, b in task.named_buffers()}
+    with torch.no_grad(), no_tf32():
+        inputs, outs = task._forward(batch, train=True)
+        out = {n: float(mse_tf(x, o.output)) for n, x, o in zip(("acoustic", "audio", "video"), inputs, outs)}
+        for n, b in task.named_buffers():
+            b.copy_(saved[n])
+    return out
+
+
+def train_embedding(counters: dict, per_step: dict) -> tuple[dict, dict]:
+    """TRAIN_STEPS full-width bf16 steps of the embedding task (triplet) on
+    one fixed batch of EMBED_CLIPS clips, the launch counts reset just
+    before and read just after. Checks: every loss term finite, the acoustic
+    and video reconstructions better after the steps (the audio VAE's MSE
+    against raw magnitudes of about 1e5 is printed: five steps of 1e-4
+    barely move it), every trained tensor moved, the audio and video BN
+    running averages moved."""
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    task = embed_task("bfloat16", "cuda")
+    trainer = Trainer(task)
+    state = trainer.init_state()
+    raw = embed_train_batch(np.random.default_rng(SEED + 18), EMBED_CLIPS)
+    before = {n: p.detach().clone() for n, p in task.named_parameters()}
+    stats_before = {n: b.clone() for n, b in task.named_buffers()}
+    batch = trainer._prepare(raw)
+    mse_before = modality_mse(task, batch)
+    del batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, raw)
+        losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+        log(f"train embedding step {state.step}: {times[-1]:.1f} ms, "
+            + ", ".join(f"{k} {v:.6g}" for k, v in losses[-1].items()))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"train embedding: launches over {TRAIN_STEPS} steps: {launches} (expected {per_step} per step: "
+        "conv_chain = 4 chains x 2 convs of the acoustic VAE; conv_chain_backward = 8 gate + 8 weight-grad "
+        "+ 7 data-grad, layer1's input needs none)")
+    for k, v in per_step.items():
+        if launches[k] != v * TRAIN_STEPS:
+            raise AssertionError(f"train embedding {k}: {launches[k]} launches, expected {v * TRAIN_STEPS}")
+    steady = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train embedding: {EMBED_CLIPS} clips x 12 frames per step, first step {times[0]:.1f} ms, median of the "
+        f"next {TRAIN_STEPS - 1} {steady:.1f} ms, {EMBED_CLIPS / steady * 1e3:.1f} clips/s, peak device memory "
+        f"{peak:.3f} GiB")
+    if not all(np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError("train embedding: a loss term is not finite")
+    batch = trainer._prepare(raw)
+    mse_after = modality_mse(task, batch)
+    del batch
+    log("train embedding reconstruction MSE per VAE, before -> after the steps: "
+        + ", ".join(f"{k} {mse_before[k]:.6g} -> {mse_after[k]:.6g}" for k in mse_before))
+    for k in ("acoustic", "video"):
+        if not mse_after[k] < mse_before[k]:
+            raise AssertionError(f"train embedding: the {k} reconstruction did not improve")
+    still = [n for n, p in task.named_parameters() if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"trained parameters did not change: {still[:5]}")
+    stuck = [n for n, b in task.named_buffers() if torch.equal(b, stats_before[n])]
+    if stuck:
+        raise AssertionError(f"BN running statistics did not change: {stuck[:5]}")
+    log(f"train embedding checks: {len(before)} trained tensors and {len(stats_before)} BN statistics moved")
+    stages = embed_train_stages(trainer, state, raw)
+    profile(lambda: trainer.train_step(state, raw), "embedding train step")
+    return launches, dict(median=steady, first=times[0], peak=peak, stages=stages)
+
+
+def embed_train_stages(trainer, state, raw) -> dict:
+    """Device time of each stage of one embedding train step, by CUDA
+    events: the calls of ``Trainer.train_step``, split where the events go."""
+    from acoustic_image_generation_tpu_torch.train.generation import no_tf32
+    from acoustic_image_generation_tpu_torch.train.trainer import step_generator
+
+    task = trainer.task
+    names = ("prepare", "stft + resize", "acoustic forward", "audio forward", "video forward", "loss",
+             "backward", "optimizer")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    with no_tf32():
+        torch.cuda.synchronize()
+        ev[0].record()
+        batch = trainer._prepare(raw)
+        ev[1].record()
+        ac, spec, video = task.inputs(batch)
+        ev[2].record()
+        ac_out = task.acoustic(ac)
+        ev[3].record()
+        au_out = task.audio(spec, train=True)
+        ev[4].record()
+        vi_out = task.video(video, train=True)
+        ev[5].record()
+        total, _ = task.objective((ac, spec, video), (ac_out, au_out, vi_out), batch,
+                                  generator=step_generator(SEED, state.step, "cuda"))
+        ev[6].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        ev[7].record()
+        state.optimizer.step()
+        ev[8].record()
+        torch.cuda.synchronize()
+    state.step += 1
+    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    log("stages of one embedding train step (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f", total {ev[0].elapsed_time(ev[-1]):.3f}")
+    return parts
+
+
+def check_embed_train_against_cpu() -> None:
+    """Two f32 embedding train steps on 2 seconds (low-amplitude audio, so
+    that the audio VAE's loss stays well conditioned), on CUDA and on the
+    CPU, from the same weights and noise: the losses within 1e-4 relative,
+    the first step's gradients (``EMBED_GRAD_TOL``) and the updates
+    (``EMBED_UPDATE_TOL``), per VAE in L2."""
+    import re
+
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    raw = embed_train_batch(np.random.default_rng(SEED + 19), 2, amplitude=4)
+    eps = np.random.default_rng(SEED + 20).standard_normal((2, 2, 128)).astype(np.float32)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        task = embed_task("float32", dev)
+        init = {n: p.detach().cpu().clone() for n, p in task.named_parameters()}
+        trainer = Trainer(task)
+        state = trainer.init_state()
+        losses = []
+        for s, e in enumerate(eps):
+            losses.append(float(trainer.train_step(state, raw, eps=e)[1]["loss"]))
+            if s == 0:
+                grads = {n: p.grad.detach().cpu().clone() for n, p in task.named_parameters()}
+        runs.append((losses, grads, {n: p.detach().cpu() - init[n] for n, p in task.named_parameters()}))
+    (l_cuda, g_cuda, d_cuda), (l_cpu, g_cpu, d_cpu) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_cuda, l_cpu))
+    cancelled = re.compile(r"^(audio|video)\.layer\d+\.(conv|pool)_\d\.bias$")
+    sums = {m: [0.0, 0.0] for m in EMBED_GRAD_TOL}
+    worst_acoustic = 0.0
+    for n, want in g_cpu.items():
+        if cancelled.match(n):
+            continue
+        model = n.split(".")[0]
+        gap, norm = float((g_cuda[n] - want).norm()) ** 2, float(want.norm()) ** 2
+        if model == "acoustic":
+            worst_acoustic = max(worst_acoustic, (gap / max(norm, 1e-60)) ** 0.5)
+        else:
+            sums[model][0] += gap
+            sums[model][1] += norm
+    grad_err = dict(acoustic=worst_acoustic, **{m: (g / w) ** 0.5 for m, (g, w) in sums.items() if m != "acoustic"})
+    update_err = {}
+    for model in EMBED_UPDATE_TOL:
+        names = [n for n in d_cpu if n.split(".")[0] == model and not cancelled.match(n)]
+        gap = sum(float((d_cuda[n] - d_cpu[n]).norm()) ** 2 for n in names)
+        update_err[model] = (gap / sum(float(d_cpu[n].norm()) ** 2 for n in names)) ** 0.5
+    log(f"check embedding train f32 cuda vs cpu (2 s, 2 steps): losses {l_cuda} vs {l_cpu}, relative error "
+        f"{loss_err:.2e} (tol 1e-4); first-step gradients " + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items())
+        + f" (tol {EMBED_GRAD_TOL}); update gaps in L2 " + ", ".join(f"{k} {v:.3e}" for k, v in update_err.items())
+        + f" (tol {EMBED_UPDATE_TOL})")
+    if not (loss_err <= 1e-4 and all(update_err[k] <= v for k, v in EMBED_UPDATE_TOL.items())
+            and all(grad_err[k] <= v for k, v in EMBED_GRAD_TOL.items())):
+        raise AssertionError("CUDA and CPU embedding train steps differ")
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1062,7 +1449,8 @@ def main() -> int:
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
     from acoustic_image_generation_tpu_torch.ops import qgemm as qg
-    from acoustic_image_generation_tpu_torch.serving import GenerationService
+    from acoustic_image_generation_tpu_torch.ops import stft as st
+    from acoustic_image_generation_tpu_torch.serving import EmbeddingService, GenerationService
     from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -1076,9 +1464,22 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(report)} libraries")
 
     task = GenerationTask(GenerationConfig(), device="cuda").init_params(SEED)
+    acoustic = embed_task("bfloat16", "cuda").acoustic
     with torch.no_grad():
-        kernels = [check_mfcc(mk), check_conv_chain(cc, task), check_conv_chain_backward(cc, task),
-                   check_matmul_stats(cs, task), check_qgemm(qg)]
+        # the conv_chain kernels at every shape the main path gives them: the
+        # generator's chains (timed) and the acoustic VAE's, at a request's
+        # and at a train step's frames
+        err_f, fwd = check_conv_chain(cc, chain_layers(task.generator, GEN_CHAINS, FRAMES), task.dtype)
+        err_fe, _ = check_conv_chain(cc, chain_layers(acoustic, EMBED_CHAINS, EMBED_SECONDS), task.dtype,
+                                     timed=False)
+        err_b, bwd = check_conv_chain_backward(cc, chain_layers(task.generator, GEN_CHAINS, TRAIN_FRAMES),
+                                               task.dtype)
+        err_be, _ = check_conv_chain_backward(cc, chain_layers(acoustic, EMBED_CHAINS, EMBED_CLIPS),
+                                              task.dtype, timed=False)
+        kernels = [check_mfcc(mk), conv_chain_entry(max(err_f, err_fe), fwd, task.dtype),
+                   conv_chain_backward_entry(max(err_b, err_be), bwd, task.dtype),
+                   check_matmul_stats(cs, task), check_qgemm(qg), check_stft(st)]
+    del acoustic
     torch.cuda.empty_cache()
 
     phase = time.perf_counter()
@@ -1086,7 +1487,7 @@ def main() -> int:
     per_request = {"mfcc": 1, "conv_chain": 12}  # 1 frontend launch; 6 chains x 2 convs
     launches, reqs, served = serve(service, {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain}, per_request, "bf16")
     served["stages"] = stage_breakdown(task, *reqs[0], "bf16")
-    profile_request(service, *reqs[0], "bf16")
+    profile(lambda: service(*reqs[0], seed=SEED), "request bf16", rows=12)
     check_against_cpu()
     del service, task, reqs
     torch.cuda.empty_cache()
@@ -1116,7 +1517,7 @@ def main() -> int:
     got, reqs, served_q = serve(service, counters, dict(per_request, qgemm_s8=36), "int8")
     launches["qgemm_s8"] = got["qgemm_s8"]
     served_q["stages"] = stage_breakdown(task, *reqs[0], "int8", qtrunk=service.qtrunk)
-    profile_request(service, *reqs[0], "int8")
+    profile(lambda: service(*reqs[0], seed=SEED), "request int8", rows=12)
     log("serving int8 beside bf16, same run: " + summary(served_q, served))
     del service, task, reqs
     torch.cuda.empty_cache()
@@ -1128,6 +1529,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("train int8 beside the bf16 frozen trunk, same run: " + summary(trained_q, trained_f))
     log(f"phase int8 training: {time.perf_counter() - phase:.1f} s")
+
+    # the embedding family: three VAEs, stft frontend, triplet alignment
+    every = {"stft": st.stft, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
+             "mfcc": mk.mfcc, "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8}
+    phase = time.perf_counter()
+    task = embed_task("bfloat16", "cuda")
+    service = EmbeddingService(task)
+    per_embed = dict(dict.fromkeys(every, 0), stft=1, conv_chain=4)
+    got, reqs, _ = serve_embedding(service, every, per_embed)
+    launches["stft"] = got["stft"]
+    embed_serving_stages(task, reqs[0])
+    profile(lambda: service(*reqs[0], seed=SEED), "embedding request", rows=12)
+    del service, task, reqs
+    torch.cuda.empty_cache()
+    check_embedding_against_cpu()
+    log(f"phase embedding serving: {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    per_embed_step = dict(per_embed, conv_chain=8, conv_chain_backward=8 + 8 + 7)
+    launches["stft"] += train_embedding(every, per_embed_step)[0]["stft"]
+    torch.cuda.empty_cache()
+    check_embed_train_against_cpu()
+    log(f"phase embedding training: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -1,0 +1,212 @@
+"""The port's embedding task against the JAX package, in f32 on the CPU, at
+full width on 3 seconds (36 frames) of synthetic clips: ``EmbedTask.loss``
+and its metrics for every variant, with JAX's noise and moddrop draws
+handed in; ``eval_losses``; ``embeddings`` both ways; the bridge both
+ways; ``EmbeddingService``'s request checks.
+
+Tolerances, and why: the same f32 arithmetic summed in another order.
+The L2 term, a function of the weights alone, within 1e-5 relative. Every
+other term within 1e-4 relative: the reconstruction terms pass through
+the decoders' train-mode BNs, whose fast-variance cancellation magnifies
+rounding gaps (see ``test_torch_embed_models.py``), and the alignment
+terms take differences of squared norms of latents that the train-mode
+encoders give within about 1e-5 (the batch-hard triplet read 2.1e-5). The
+latents of the eval-mode encoders within 1e-5 of the largest latent, the
+eval losses within 1e-4 relative, the BN running averages within 1e-3.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acoustic_image_generation_tpu.core.config import (
+    DataConfig,
+    ExperimentConfig,
+    ModelConfig,
+    OptimConfig,
+    ParallelConfig,
+)
+from acoustic_image_generation_tpu.data.preprocess import preprocess_batch as jax_preprocess
+from acoustic_image_generation_tpu.train.embed import EmbedTask as JaxEmbed
+from acoustic_image_generation_tpu_torch import bridge
+from acoustic_image_generation_tpu_torch.serving import EmbeddingService
+from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
+from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from test_torch_embed_models import perturb
+
+SECONDS = 3
+ACTIONS = np.array([0, 1, 0])  # same and different classes
+VARIANTS = ("triplet", "fusion", "moddrop", "l2", "proxy", "bce")
+
+
+def jax_cfg(variant="triplet", lr=1e-4):
+    flags = {v: v == variant for v in ("fusion", "moddrop", "l2", "proxy")}
+    return ExperimentConfig(
+        data=DataConfig(sample_length=1),
+        model=ModelConfig(embedding=True, **flags),
+        optim=OptimConfig(learning_rate=lr, bce=variant == "bce"),
+        parallel=ParallelConfig(compute_dtype="float32"),
+    )
+
+
+def port_cfg(variant="triplet", lr=1e-4):
+    flags = {v: v == variant for v in ("fusion", "moddrop", "l2", "proxy", "bce")}
+    return EmbedConfig(compute_dtype="float32", learning_rate=lr, **flags)
+
+
+def raw_clips(seed, seconds=SECONDS, amplitude=2**15):
+    rng = np.random.default_rng(seed)
+    f = (seconds, 12)
+    return dict(
+        acoustic=rng.random((*f, 36, 48, 12), dtype=np.float32),
+        audio=rng.integers(-amplitude, amplitude, (*f, 1024)).astype(np.int32),
+        video=rng.integers(0, 256, (*f, 224, 298, 3)).astype(np.uint8),
+        action=ACTIONS[:seconds].astype(np.int32),
+        location=np.zeros(seconds, np.int32),
+    )
+
+
+def jax_batch(raw):
+    flat = {k: jnp.asarray(raw[k].reshape(-1, *raw[k].shape[2:])) for k in ("acoustic", "audio", "video")}
+    rep = lambda a: jnp.repeat(jnp.asarray(a), 12)
+    return jax_preprocess(flat["acoustic"], flat["audio"], flat["video"], rep(raw["action"]),
+                          rep(raw["location"]), compute_filtered=False)
+
+
+@functools.cache
+def jax_init():
+    """JAX's initial trees, biases and BN parameters and statistics drawn
+    away from their initial values."""
+    params, stats = jax.jit(JaxEmbed(jax_cfg()).init_variables)(jax.random.key(0), jax_batch(raw_clips(0)))
+    return perturb(jax.device_get(params), np.random.default_rng(1)), \
+        perturb(jax.device_get(stats), np.random.default_rng(2))
+
+
+def port_task(variant="triplet", lr=1e-4):
+    task = EmbedTask(port_cfg(variant, lr), device="cpu")
+    bridge.load_flax(task, *jax_init())
+    return task
+
+
+def draws(key):
+    """JAX's shared noise and moddrop flags for the rngs of ``key``, as the
+    JAX loss draws them."""
+    eps = np.asarray(jax.random.normal(key, (SECONDS, 128), jnp.float32))
+    k1, k2, k3 = jax.random.split(key, 3)
+    on = lambda k, p: float((jax.random.uniform(k, (1,)) < p)[0])
+    return eps, (on(k1, 0.98), on(k2, 0.98), on(k3, 0.5))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_loss_matches_jax(variant, train):
+    key = jax.random.key(7)
+    params, stats = jax_init()
+    raw = raw_clips(1)
+    jt = JaxEmbed(jax_cfg(variant))
+    total, metrics, new_stats = jax.jit(
+        lambda p, s, b: jt.loss(p, s, b, {"latent": key, "moddrop": key}, train=train))(
+        params, stats, jax_batch(raw))
+    eps, flags = draws(key)
+    task = port_task(variant)
+    trainer = Trainer(task)
+    with torch.no_grad():
+        got_total, got = task.loss(trainer._prepare(raw), train=train, eps=torch.tensor(eps),
+                                   moddrop=flags)
+    assert set(got) == set(metrics), (set(got), set(metrics))
+    for name, value in got.items():
+        tol = 1e-5 if name == "regularization" else 1e-4
+        np.testing.assert_allclose(float(value), float(metrics[name]), rtol=tol, err_msg=name)
+    np.testing.assert_allclose(float(got_total), float(total), rtol=1e-4)
+    got_stats = bridge.to_flax(task)[1]
+    for path, value in jax.tree_util.tree_leaves_with_path(got_stats):
+        want = dict(jax.tree_util.tree_leaves_with_path(new_stats))[path]
+        np.testing.assert_allclose(value, np.asarray(want), rtol=1e-3, atol=1e-3)
+
+
+def test_eval_losses_and_embeddings_match_jax():
+    params, stats = jax_init()
+    raw = raw_clips(2)
+    jt = JaxEmbed(jax_cfg())
+    key = jax.random.key(3)
+    want_losses, _ = jax.jit(lambda p, s, b: jt.eval_losses(p, s, b, {"latent": key}))(
+        params, stats, jax_batch(raw))
+    task = port_task()
+    batch = Trainer(task)._prepare(raw)
+    with torch.no_grad():
+        got_losses, outs = task.eval_losses(batch)
+    assert set(got_losses) == set(want_losses)
+    for name, value in got_losses.items():
+        assert value.shape == (SECONDS,)
+        np.testing.assert_allclose(value.numpy(), np.asarray(want_losses[name]), rtol=1e-4, err_msg=name)
+    eps, _ = draws(key)
+    for use_mean in (True, False):
+        want = jax.jit(lambda p, s, b: jt.embeddings(p, s, b, key, use_mean=use_mean))(params, stats,
+                                                                                       jax_batch(raw))
+        with torch.no_grad():
+            got = task.embeddings(batch, use_mean=use_mean, eps=None if use_mean else torch.tensor(eps))
+            # encoders only, and the same numbers as the eval forward's heads
+            if use_mean:
+                for name, out in zip(("acoustic", "audio", "video"), outs):
+                    torch.testing.assert_close(got[name], out.mean, rtol=1e-6, atol=1e-6)
+        for name in ("acoustic", "audio", "video"):
+            assert got[name].shape == (SECONDS, 128) and got[name].dtype == torch.float32
+            assert _rel(got[name].numpy(), want[name]) < 1e-5, (name, use_mean)
+    # the service gives the task's embeddings, from model-ready frames
+    service = EmbeddingService(task)
+    z = service(batch.acoustic, batch.audio, batch.video, seed=0, eps=eps)
+    for got, name in zip(z, ("acoustic", "audio", "video")):
+        assert _rel(got.numpy(), want[name]) < 1e-5, name
+
+
+def test_bridge_round_trip_is_the_identity():
+    params, stats = jax_init()
+    task = EmbedTask(EmbedConfig(), device="cpu")  # bf16 compute, f32 masters
+    bridge.load_flax(task, params, stats)
+    assert all(p.dtype == torch.float32 for p in task.parameters())
+    back_p, back_s = bridge.to_flax(task)
+    for got_tree, want_tree in ((back_p, params), (stats, back_s)):
+        got = dict(jax.tree_util.tree_leaves_with_path(got_tree))
+        want = dict(jax.tree_util.tree_leaves_with_path(want_tree))
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=jax.tree_util.keystr(k))
+    assert set(stats) == {"audio", "video"} and set(params) == {"acoustic", "audio", "video"}
+    with pytest.raises(KeyError):
+        bridge.load_flax(task, {k: v for k, v in params.items() if k != "video"}, stats)
+
+
+def test_service_and_task_check_their_inputs():
+    task = EmbedTask(port_cfg(), device="cpu").init_params(0)
+    service = EmbeddingService(task)
+    rng = np.random.default_rng(0)
+    ac = rng.random((12, 36, 48, 12), dtype=np.float32)
+    audio = rng.standard_normal((12, 1024)).astype(np.float32)
+    video = rng.random((12, 224, 298, 3), dtype=np.float32)
+    z = service(ac, audio, video, seed=1)
+    assert [t.shape for t in z] == [(1, 128)] * 3
+    torch.testing.assert_close(service(ac, audio, video, seed=1)[1], z[1])  # seeded
+    means = service(ac, audio, video, seed=1, use_mean=True)
+    assert not torch.equal(means[0], z[0])
+    with pytest.raises(TypeError):
+        service(ac, audio.astype(np.int32), video, 0)
+    with pytest.raises(ValueError):
+        service(ac[..., :11], audio, video, 0)
+    with pytest.raises(ValueError):
+        service(ac[:6], audio[:6], video[:6], 0)  # not whole seconds
+    with pytest.raises(ValueError):
+        service(ac, audio[:11], video, 0)
+    batch = Trainer(task)._prepare({k: v for k, v in raw_clips(3, 1).items() if k != "action"})
+    with pytest.raises(ValueError, match="labels"):
+        task.loss(batch, generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="stats"):
+        EmbedTask(EmbedConfig(normalize_spectrogram=True), device="cpu")

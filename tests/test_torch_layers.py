@@ -55,7 +55,7 @@ def test_conv_conv_pool_stride3_matches_jax():
     conv, pool = block.apply(variables, jnp.asarray(x))
 
     holder = torch.nn.Module()
-    holder.block = ConvConvPool(6, (16, 16), pool=True, device="cpu")
+    holder.block = ConvConvPool(6, (16, 16), pool=True, pool_strides=(3, 3), device="cpu")
     bridge.load_flax(holder, {"block": jax.device_get(variables["params"])}, {})
     got_conv, got_pool = holder.block(torch.from_numpy(x))
     assert got_pool.shape == (2, 12, 16, 16)

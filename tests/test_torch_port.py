@@ -13,8 +13,10 @@ import torch
 from acoustic_image_generation_tpu_torch import resolve_device
 from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
 from acoustic_image_generation_tpu_torch.ops import qgemm
-from acoustic_image_generation_tpu_torch.serving import GenerationService
+from acoustic_image_generation_tpu_torch.serving import EmbeddingService, GenerationService
+from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask, no_tf32
+from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,7 +44,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 32  # every module of the package, subpackages included
+    assert int(count) >= 38  # every module of the package, subpackages included
     assert bad == "[]"
 
 
@@ -66,6 +68,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(ValueError, match="trunk_quant"):
         GenerationService(GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1)), device="cpu"),
                           qtrunk=QuantTrunk(((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 1))))
+    # the embedding family: the task, its service and its trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbedTask()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbedTask(EmbedConfig(compute_dtype="float32"), device="cuda")
+    embed = EmbedTask(EmbedConfig(compute_dtype="float32"), device="cpu")
+    assert EmbeddingService(embed).device == torch.device("cpu")
+    assert Trainer(embed).device == torch.device("cpu") and not embed.reads_mfcc
 
 
 def test_qgemm_s8_runs_its_plain_version_on_the_cpu_only():

@@ -131,7 +131,7 @@ def test_train_mode_batch_norm_matches_flax():
         jnp.asarray(x), variables["params"]
     )
 
-    port = BatchNorm(6, 1e-5)
+    port = BatchNorm(6, 1e-5, 0.997)
     with torch.no_grad():
         port.weight.copy_(torch.from_numpy(scale))
         port.bias.copy_(torch.from_numpy(bias))
