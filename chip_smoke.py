@@ -11,7 +11,9 @@ imports nothing of JAX. Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it (serving: 96 frames; training: 768 frames; the
    f32 backward against a float64 witness), and time kernel, plain version
-   and a library yardstick with CUDA events;
+   and a library yardstick with CUDA events; the ``conv_chain`` backward
+   also launch by launch (gate, weight grad, data grad of each layer), and
+   its channel padding (133 -> 136) is checked for leaks;
 3. serve full-width bf16 requests (ResNet50 3/4/6/3 + UNetAcResNet 1-skip
    VAE, random weights from the seed, 96 frames each) through
    ``GenerationService``, with the kernels' launch counts reset just before
@@ -334,7 +336,7 @@ def check_conv_chain_backward(cc, chains, dtype, timed=True) -> tuple[float, dic
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0, parts={})
     err_main = 0.0
     for name, shape, ws in chains:
         relu = (True,) * len(ws)
@@ -410,6 +412,13 @@ def check_conv_chain_backward(cc, chains, dtype, timed=True) -> tuple[float, dic
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
             for k, v in dict(ms=ms, plain_ms=plain, library_ms=lib, flops=flops, nbytes=nbytes).items():
                 tot[k] += v
+            # each launch of the backward alone, on the inputs the backward gives it
+            parts = {}
+            for part, layer, fn, _ in cc.backward_parts(x, acts, wd, gy, relu, needs_dx):
+                parts[f"{part} {layer}"] = t = time_ms(fn, iters=10)
+                tot["parts"][part] = tot["parts"].get(part, 0.0) + t
+            log(f"time conv_chain_backward {name} by launch (ms): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
             del y, inputs, xl, wl, bl
     return err_main, tot
 
@@ -421,7 +430,8 @@ def conv_chain_backward_entry(err: float, tot: dict, dtype) -> dict:
     b, by = bound_ms(tot["nbytes"], tot["flops"], dtype)
     log(f"time conv_chain_backward all chains of one {TRAIN_FRAMES}-frame step: kernels {tot['ms']:.3f} ms, "
         f"plain {tot['plain_ms']:.3f} ms, cudnn autograd {tot['library_ms']:.3f} ms, bound {b:.4f} ms "
-        f"({by}), {tot['flops'] / 1e9:.1f} GFLOP")
+        f"({by}), {tot['flops'] / 1e9:.1f} GFLOP; by part, each launch alone: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in tot["parts"].items()))
     return dict(
         name="conv_chain_backward", route="cuda",
         source="acoustic_image_generation_tpu_torch/csrc/conv_chain.cu",
@@ -429,6 +439,38 @@ def conv_chain_backward_entry(err: float, tot: dict, dtype) -> dict:
         max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
         library_ms=tot["library_ms"],
     )
+
+
+def check_padding(cc) -> None:
+    """The bf16 kernels pad 133 channels to 136 (and 12 to 16). On a chain
+    133 -> 133 -> 133 at 768 frames of 12x16 (layer2's and layer4's widths):
+    the padded intermediates hold zeros in their added channels, the
+    returned output and dx have 133 channels, are contiguous and match the
+    plain versions. (The generator's chains check the padded shapes
+    themselves: Ci = 12 and 133 in, Co = 133 out, data grads into 133 and
+    256 channels.)"""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    chans, relu = (133, 133, 133), (True, True)
+    ws = [(torch.randn(9 * a, b, generator=g, device="cuda") / (9 * a) ** 0.5).bfloat16()
+          for a, b in zip(chans[:-1], chans[1:])]
+    bs = [0.1 * torch.randn(b, generator=g, device="cuda") for b in chans[1:]]
+    x = torch.relu(torch.randn(TRAIN_FRAMES, 12, 16, chans[0], generator=g, device="cuda")).bfloat16()
+    y = cc.conv_chain(x, ws, bs, relu)
+    acts = cc._forward_cuda(x, ws, bs, relu)
+    gy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    dx = cc.conv_chain_backward(x, acts, ws, gy, relu)[0]
+    leaks = [int(cc.pad_channels(a, reuse=True)[..., a.shape[-1]:].count_nonzero()) for a in acts]
+    shapes = [tuple(t.shape) for t in (y, dx, *acts)]
+    ok = (all(n == 0 for n in leaks) and y.is_contiguous() and dx.is_contiguous()
+          and all(sh[-1] == 133 for sh in shapes))
+    err_y = compare("conv_chain padded 133 -> 133 -> 133 bf16", y, cc.conv_chain_reference(x, ws, bs, relu),
+                    CHAIN_TOL[torch.bfloat16])
+    err_dx = rel_err(dx, cc.conv_chain_backward_reference(x, acts, ws, gy, relu)[0])
+    log(f"check padding: nonzero added channels of the intermediates {leaks}, shapes {shapes}, output and dx "
+        f"contiguous {y.is_contiguous()} {dx.is_contiguous()}; y max abs {err_y:.3e}, dx {err_dx:.2e} of the "
+        f"largest (tol {GRAD_TOL[torch.bfloat16]['dx']})")
+    if not ok or err_dx > GRAD_TOL[torch.bfloat16]["dx"]:
+        raise AssertionError("conv_chain: padded channels leak or the padded chain is off")
 
 
 # (name, rows per frame, K, N) of three of the trunk's 1x1 stride-1 convs
@@ -692,7 +734,8 @@ def train(counters: dict, per_step: dict, label: str, **config) -> dict:
             q_before = {n: b.clone() for n, b in trainer.qtrunk.named_buffers()}
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"train {label}: launches over {TRAIN_STEPS} steps: {launches} (expected {per_step} per step: "
-        "conv_chain_backward = 12 gate + 12 weight-grad + 11 data-grad, layer1's input needs none)")
+        "conv_chain_backward = 6 gate (one a chain) + 12 weight-grad + 11 data-grad (each gating the layer "
+        "before it), layer1's input needs none)")
     for k, v in per_step.items():
         if launches[k] != v * TRAIN_STEPS:
             raise AssertionError(f"train {label} {k}: {launches[k]} launches, expected {v * TRAIN_STEPS}")
@@ -1307,7 +1350,7 @@ def train_embedding(counters: dict, per_step: dict) -> tuple[dict, dict]:
             + ", ".join(f"{k} {v:.6g}" for k, v in losses[-1].items()))
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"train embedding: launches over {TRAIN_STEPS} steps: {launches} (expected {per_step} per step: "
-        "conv_chain = 4 chains x 2 convs of the acoustic VAE; conv_chain_backward = 8 gate + 8 weight-grad "
+        "conv_chain = 4 chains x 2 convs of the acoustic VAE; conv_chain_backward = 4 gate + 8 weight-grad "
         "+ 7 data-grad, layer1's input needs none)")
     for k, v in per_step.items():
         if launches[k] != v * TRAIN_STEPS:
@@ -1476,6 +1519,7 @@ def main() -> int:
                                                task.dtype)
         err_be, _ = check_conv_chain_backward(cc, chain_layers(acoustic, EMBED_CHAINS, EMBED_CLIPS),
                                               task.dtype, timed=False)
+        check_padding(cc)
         kernels = [check_mfcc(mk), conv_chain_entry(max(err_f, err_fe), fwd, task.dtype),
                    conv_chain_backward_entry(max(err_b, err_be), bwd, task.dtype),
                    check_matmul_stats(cs, task), check_qgemm(qg), check_stft(st)]
@@ -1495,7 +1539,7 @@ def main() -> int:
 
     phase = time.perf_counter()
     chain = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward}
-    per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 12 + 12 + 11}
+    per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 6 + 12 + 11}
     launches["conv_chain_backward"] = train(chain, per_step, "bf16")[0]["conv_chain_backward"]
     torch.cuda.empty_cache()
     check_train_against_cpu()
@@ -1546,7 +1590,7 @@ def main() -> int:
     check_embedding_against_cpu()
     log(f"phase embedding serving: {time.perf_counter() - phase:.1f} s")
     phase = time.perf_counter()
-    per_embed_step = dict(per_embed, conv_chain=8, conv_chain_backward=8 + 8 + 7)
+    per_embed_step = dict(per_embed, conv_chain=8, conv_chain_backward=4 + 8 + 7)
     launches["stft"] += train_embedding(every, per_embed_step)[0]["stft"]
     torch.cuda.empty_cache()
     check_embed_train_against_cpu()
