@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aig_torch_kernels"
 KERNELS = ("mfcc", "conv_chain", "matmul_stats", "qgemm_s8", "stft")
@@ -86,6 +88,13 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent kernels'
+    grids are sized from it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from acoustic_image_generation_tpu_torch.ops import build
+from acoustic_image_generation_tpu_torch.ops import build, gemm_plan
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,7 +39,7 @@ def _entry():
     fn = build.library("matmul_stats").aig_matmul_stats
     p = ctypes.c_void_p
     i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -48,12 +48,23 @@ def _matmul_stats_cuda(x, w):
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    s = torch.zeros((n,), dtype=torch.float32, device=x.device)
-    ss = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        # the blocks' column partials, summed by the kernel's second pass into s and ss
+        plan = gemm_plan.plan("matmul_stats", m, k, n, build.sm_count(x.device))
+        part = torch.empty((plan.blocks_m, 2, n), dtype=torch.float32, device=x.device)
+        s = torch.empty((n,), dtype=torch.float32, device=x.device)
+        ss = torch.empty((n,), dtype=torch.float32, device=x.device)
+        tiling = (plan.bn, plan.blocks_m, plan.smem_bytes)
+    else:
+        part = None
+        s = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        ss = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        tiling = (0, 0, 0)
     with torch.cuda.device(x.device):
         rc = _entry()(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), s.data_ptr(), ss.data_ptr(),
-            m, k, n, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            None if part is None else part.data_ptr(), m, k, n, _DTYPES[x.dtype], *tiling,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(rc, "matmul_stats")
     matmul_stats.launches += 1
@@ -109,11 +120,23 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor):
     if x.device.type not in ("cpu", "cuda") or w.device != x.device:
         raise ValueError(f"matmul_stats runs on one cpu or cuda device, got {x.device}, {w.device}")
     if x.device.type == "cuda":
-        if not x.is_contiguous():
-            raise ValueError("matmul_stats takes a contiguous (M, K) input")
-        if max(x.shape[1], w.shape[1]) >= 2**31 or x.shape[0] * max(x.shape[1], w.shape[1]) >= 2**62:
-            raise ValueError(f"matmul_stats input too large: {tuple(x.shape)} @ {tuple(w.shape)}")
+        check_kernel_args(x, w)
     return MatmulStatsFunction.apply(x, w)
+
+
+def check_kernel_args(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless the CUDA kernels take ``x`` (M, K) and ``w`` (K, N): x
+    contiguous, sizes within 32-bit columns and 64-bit offsets, and for the
+    bf16 kernel whole 16-byte chunks (K and N multiples of 8) and a 16-byte
+    aligned x (the wrapper makes w contiguous). Reads only shapes, dtypes and
+    addresses."""
+    if not x.is_contiguous():
+        raise ValueError("matmul_stats takes a contiguous (M, K) input")
+    if max(x.shape[1], w.shape[1]) >= 2**31 or x.shape[0] * max(x.shape[1], w.shape[1]) >= 2**62:
+        raise ValueError(f"matmul_stats input too large: {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype == torch.bfloat16 and (x.shape[1] % 8 or w.shape[1] % 8 or x.data_ptr() % 16):
+        raise ValueError(f"the bf16 matmul_stats kernel takes K and N multiples of 8 and a 16-byte "
+                         f"aligned x, got {tuple(x.shape)} @ {tuple(w.shape)}")
 
 
 matmul_stats.launches = 0

@@ -9,9 +9,11 @@ sum ``acc``; then, in f32,
     out = s8(clip(round_half_even(y), -127, 127))
 
 where the primed coefficients carry the requant scale ``127 / out_amax``,
-folded in here as JAX folds it on the host. Folding reorders two f32
-roundings against models/quant.py's unfused epilogue, so the two may differ
-by one int8 quantum on rare near-tie entries.
+folded in as JAX folds it on the host: by ``_folded`` in the plain version,
+by the kernel itself from the amaxes on the device, with the same f32
+operations. Folding reorders two f32 roundings against models/quant.py's
+unfused epilogue, so the two may differ by one int8 quantum on rare
+near-tie entries.
 
 Weights are stored (N, K), K-major: the layout the kernel's tensor-core
 product reads without a transpose. JAX's kernel takes (K, N);
@@ -26,7 +28,7 @@ import functools
 
 import torch
 
-from acoustic_image_generation_tpu_torch.ops import build
+from acoustic_image_generation_tpu_torch.ops import build, gemm_plan
 from acoustic_image_generation_tpu_torch.ops.qconv import int_mm
 
 
@@ -81,7 +83,8 @@ def qgemm_s8_reference(x, w, factor, bias, out_amax, *, relu, residual=None, res
 def _entry():
     fn = build.library("qgemm_s8").aig_qgemm_s8
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    i = ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,12 +108,19 @@ def _check(x, w, factor, bias, residual, residual_amax) -> None:
     if x.device.type not in ("cpu", "cuda") or any(t.device != x.device for t in tensors):
         raise ValueError(f"qgemm_s8 runs on one cpu or cuda device, got {[str(t.device) for t in tensors]}")
     if x.device.type == "cuda":
-        k = x.shape[1]
-        if k % 16 or n % 16 or k >= 2**31 or n >= 2**31:
-            raise ValueError(f"the qgemm_s8 kernel takes K and N multiples of 16, got K={k}, N={n}")
-        for t in (x, w, residual):
-            if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
-                raise ValueError("the qgemm_s8 kernel takes contiguous, 16-byte aligned x, w and residual")
+        check_kernel_args(x, w, residual)
+
+
+def check_kernel_args(x, w, residual=None) -> None:
+    """Raise unless the CUDA kernel takes these operands: whole 16-byte
+    chunks of K and N (a K tail inside one of its k32 steps is zero-filled),
+    contiguous, 16-byte aligned. Reads only shapes and addresses."""
+    k, n = x.shape[1], w.shape[0]
+    if k % 16 or n % 16 or k >= 2**31 or n >= 2**31:
+        raise ValueError(f"the qgemm_s8 kernel takes K and N multiples of 16, got K={k}, N={n}")
+    for t in (x, w, residual):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("the qgemm_s8 kernel takes contiguous, 16-byte aligned x, w and residual")
 
 
 def qgemm_s8(x, w, factor, bias, out_amax, *, relu: bool, residual=None, residual_amax=None):
@@ -128,15 +138,22 @@ def qgemm_s8(x, w, factor, bias, out_amax, *, relu: bool, residual=None, residua
     if x.device.type == "cpu":
         return qgemm_s8_reference(x, w, factor, bias, out_amax, relu=relu, residual=residual,
                                   residual_amax=residual_amax)
-    fb, res_scale = _folded(factor, bias, out_amax, residual_amax, x.device)
+    # the kernel folds the requant scale in itself, from the amaxes on the device
+    f32 = dict(dtype=torch.float32, device=x.device)
+    factor, bias = factor.to(**f32).contiguous(), bias.to(**f32).contiguous()
+    out_amax = torch.as_tensor(out_amax, **f32)
+    res_amax = None if residual is None else torch.as_tensor(residual_amax, **f32)
     m, k = x.shape
     n = w.shape[0]
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    plan = gemm_plan.plan("qgemm_s8", m, k, n, build.sm_count(x.device))
     with torch.cuda.device(x.device):
         rc = _entry()(
-            x.data_ptr(), w.data_ptr(), fb.data_ptr(), res_scale.data_ptr(),
+            x.data_ptr(), w.data_ptr(), factor.data_ptr(), bias.data_ptr(), out_amax.data_ptr(),
+            None if res_amax is None else res_amax.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            m, k, n, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+            m, k, n, int(relu), plan.bn, plan.blocks_m, plan.smem_bytes, int(plan.panel),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(rc, "qgemm_s8")
     qgemm_s8.launches += 1

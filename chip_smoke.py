@@ -1,10 +1,14 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --trunk-gemms [--package-root DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
-imports nothing of JAX. Phases, each fatal on failure:
+imports nothing of JAX. ``--trunk-gemms`` runs only phase 2's checks and
+times of ``matmul_stats`` and ``qgemm_s8`` (of the checkout at ``DIR``,
+such as a parent commit's, with ``--package-root``) and prints no result
+line. Phases, each fatal on failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
@@ -13,7 +17,9 @@ imports nothing of JAX. Phases, each fatal on failure:
    f32 backward against a float64 witness), and time kernel, plain version
    and a library yardstick with CUDA events; the ``conv_chain`` backward
    also launch by launch (gate, weight grad, data grad of each layer), and
-   its channel padding (133 -> 136) is checked for leaks;
+   its channel padding (133 -> 136) is checked for leaks; ``matmul_stats``
+   and ``qgemm_s8`` at every shape of one trunk forward's 36 launches, with
+   per-launch bounds and launch plans;
 3. serve full-width bf16 requests (ResNet50 3/4/6/3 + UNetAcResNet 1-skip
    VAE, random weights from the seed, 96 frames each) through
    ``GenerationService``, with the kernels' launch counts reset just before
@@ -150,6 +156,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, pattern: str, iters: int = 10) -> float:
+    """Mean device time per call of ``fn`` spent in the CUDA kernels whose
+    names match ``pattern``, by torch.profiler: a kernel's own time, without
+    the wrapper's host work and the small torch ops around its launch."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pattern, e.key))
+    return us / iters / 1e3
 
 
 def compare(name, got, want, tol) -> float:
@@ -473,6 +496,9 @@ def check_padding(cc) -> None:
         raise AssertionError("conv_chain: padded channels leak or the padded chain is off")
 
 
+# the kernels a matmul_stats or qgemm_s8 call launches, by name
+STATS_KERNELS = r"matmul_stats_(bf16|f32)|sum_partials"
+QGEMM_KERNELS = r"qgemm_s8_kernel"
 # (name, rows per frame, K, N) of three of the trunk's 1x1 stride-1 convs
 STATS_SHAPES = (
     ("block1_unit_1.conv1", 55 * 74, 64, 64),
@@ -484,49 +510,124 @@ STATS_SHAPES = (
 def check_matmul_stats(cs, task) -> dict:
     """The kernel against its plain version at three trunk shapes at the
     training batch, both dtypes; times in the task's dtype against
-    ``torch.matmul`` followed by the two sums."""
+    ``torch.matmul`` followed by the two sums. Then the 36 launches of one
+    768-frame ``fused_bn_stats`` trunk forward (``check_matmul_stats_trunk``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
     err_main = 0.0
     for name, rows, k, n in STATS_SHAPES:
         m = TRAIN_FRAMES * rows
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.relu(torch.randn((m, k), generator=g, device="cuda")).to(dt)
-            w = (torch.randn((k, n), generator=g, device="cuda") / k**0.5).to(dt)
-            y, s, ss = cs.matmul_stats(x, w)
-            wy, ws, wss = cs.matmul_stats_reference(x, w)
-            err = compare(f"matmul_stats {name} y {str(dt)[6:]} ({m},{k})@({k},{n})", y, wy, CHAIN_TOL[dt])
-            e_s, e_ss = rel_err(s, ws), rel_err(ss, wss)
-            log(f"check matmul_stats {name} sums {str(dt)[6:]}: relative errors sum {e_s:.2e}, "
-                f"sumsq {e_ss:.2e} (tol 1e-4)")
-            if max(e_s, e_ss) > 1e-4:
-                raise AssertionError(f"matmul_stats {name} {dt}: sums off by {max(e_s, e_ss)}")
-            del y, s, ss, wy, ws, wss
+            x, w = stats_case(g, m, k, n, dt)
+            err = check_stats_case(cs, f"{name} {str(dt)[6:]}", x, w)
             if dt != task.dtype:
                 continue
             err_main = max(err_main, err)
-
-            def library(x=x, w=w):
-                y = torch.matmul(x, w)
-                return y, y.sum(0, dtype=torch.float32), (y * y).sum(0, dtype=torch.float32)
-
-            ms = time_ms(lambda: cs.matmul_stats(x, w))
-            plain = time_ms(lambda: cs.matmul_stats_reference(x, w), iters=5, warmup=1)
-            lib = time_ms(library)
-            flops = 2 * m * k * n + 3 * m * n
-            nbytes = (m * k + k * n + m * n) * dt.itemsize + 2 * n * 4
-            b, by = bound_ms(nbytes, flops, dt)
-            log(f"time matmul_stats {name} ({m},{k})@({k},{n}): kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                f"matmul+sums {lib:.3f} ms, bound {b:.4f} ms ({by}), {flops / ms / 1e9:.1f} TFLOP/s")
-            for key, v in dict(ms=ms, plain_ms=plain, library_ms=lib, flops=flops, nbytes=nbytes).items():
-                tot[key] += v
+            t = time_stats_case(cs, x, w, plain=True)
+            log(f"time matmul_stats {name} ({m},{k})@({k},{n}): kernel {t['ms']:.3f} ms (device "
+                f"{t['device_ms']:.3f}), plain "
+                f"{t['plain_ms']:.3f} ms, matmul+sums {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), {t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+            for key in tot:
+                tot[key] += t[key]
+            del x, w
     b, by = bound_ms(tot["nbytes"], tot["flops"], task.dtype)
+    check_matmul_stats_trunk(cs, task.dtype)
     return dict(
         name="matmul_stats", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/matmul_stats.cu",
         replaces="acoustic_image_generation_tpu/ops/pallas_conv_stats.py:114",
         max_abs_err=err_main, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
         library_ms=tot["library_ms"],
     )
+
+
+def stats_case(g, m, k, n, dt):
+    """Operands of one ``matmul_stats`` shape: a post-ReLU input, as the
+    trunk's 1x1 convs take, and fan-in scaled weights."""
+    x = torch.relu(torch.randn((m, k), generator=g, device="cuda")).to(dt)
+    w = (torch.randn((k, n), generator=g, device="cuda") / k**0.5).to(dt)
+    return x, w
+
+
+def check_stats_case(cs, name, x, w) -> float:
+    """y within ``CHAIN_TOL`` of the plain version, both sums within 1e-4 of
+    their largest entry; returns y's max abs error."""
+    (m, k), n = x.shape, w.shape[1]
+    y, s, ss = cs.matmul_stats(x, w)
+    wy, ws, wss = cs.matmul_stats_reference(x, w)
+    err = compare(f"matmul_stats {name} y ({m},{k})@({k},{n})", y, wy, CHAIN_TOL[x.dtype])
+    e_s, e_ss = rel_err(s, ws), rel_err(ss, wss)
+    log(f"check matmul_stats {name} sums: relative errors sum {e_s:.2e}, sumsq {e_ss:.2e} (tol 1e-4)")
+    if max(e_s, e_ss) > 1e-4:
+        raise AssertionError(f"matmul_stats {name}: sums off by {max(e_s, e_ss)}")
+    return err
+
+
+def time_stats_case(cs, x, w, plain: bool, iters: int = 20) -> dict:
+    """Kernel, plain (if asked) and library (``torch.matmul`` + two sums)
+    times of one shape, with its bound."""
+    (m, k), n = x.shape, w.shape[1]
+
+    def library():
+        y = torch.matmul(x, w)
+        return y, y.sum(0, dtype=torch.float32), (y * y).sum(0, dtype=torch.float32)
+
+    ms = time_ms(lambda: cs.matmul_stats(x, w), iters=iters)
+    dev = device_ms(lambda: cs.matmul_stats(x, w), STATS_KERNELS)
+    plain_ms = time_ms(lambda: cs.matmul_stats_reference(x, w), iters=5, warmup=1) if plain else 0.0
+    lib = time_ms(library, iters=iters)
+    flops = 2 * m * k * n + 3 * m * n
+    nbytes = (m * k + k * n + m * n) * x.dtype.itemsize + 2 * n * 4
+    b, by = bound_ms(nbytes, flops, x.dtype)
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib, flops=flops, nbytes=nbytes,
+                bound_ms=b, bound_by=by)
+
+
+def plan_note(kernel: str, m: int, k: int, n: int) -> str:
+    """The launch plan of a trunk GEMM kernel, for the logs; empty for a
+    checkout from before the plans (``--package-root``)."""
+    try:
+        from acoustic_image_generation_tpu_torch.ops import gemm_plan
+    except ImportError:
+        return ""
+    p = gemm_plan.plan(kernel, m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f" (N tile {p.bn} x{p.n_tiles}, {p.stages} stages{', weight panel' if p.panel else ''}, "
+            f"{p.blocks_m} blocks a tile)")
+
+
+def check_matmul_stats_trunk(cs, dtype) -> dict:
+    """``matmul_stats`` at every distinct shape of the 36 launches of one
+    ``fused_bn_stats`` trunk forward at the training batch (the train-mode
+    1x1 convs: the same 36 convs ``qgemm_s8`` runs in the int8 trunk), in
+    the compute dtype: each held against its plain version (y and both
+    sums); kernel, library and bound per launch, and summed over the 36."""
+    from collections import Counter
+
+    shapes = Counter((rows, k, n) for rows, k, n, _, _ in qgemm_launches())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    tot = dict(ms=0.0, device_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0, bound_ms=0.0)
+    worst = 0.0
+    for (rows, k, n), count in shapes.items():
+        m = TRAIN_FRAMES * rows
+        x, w = stats_case(g, m, k, n, dtype)
+        worst = max(worst, check_stats_case(cs, f"trunk {str(dtype)[6:]}", x, w))
+        t = time_stats_case(cs, x, w, plain=False)
+        log(f"time matmul_stats trunk ({m},{k})@({k},{n}) x{count}{plan_note('matmul_stats', m, k, n)}: kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), matmul+sums {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['nbytes'] / t['ms'] / 1e6:.1f} GB/s")
+        for key in tot:
+            tot[key] += t[key] * count
+        del x, w
+        torch.cuda.empty_cache()
+    b, by = bound_ms(tot["nbytes"], tot["flops"], dtype)
+    log(f"time matmul_stats one {TRAIN_FRAMES}-frame fused_bn_stats trunk forward ({sum(shapes.values())} "
+        f"launches, {len(shapes)} distinct shapes): kernel {tot['ms']:.3f} ms (device {tot['device_ms']:.3f}), "
+        f"matmul+sums "
+        f"{tot['library_ms']:.3f} ms, bound {b:.3f} ms ({by}; {tot['nbytes'] / 1e9:.2f} GB, "
+        f"{tot['flops'] / 1e12:.2f} TFLOP; per-launch bounds summed {tot['bound_ms']:.3f} ms); y worst "
+        f"{worst:.3e}")
+    return tot
 
 
 def qgemm_launches(blocks=None):
@@ -579,7 +680,7 @@ def check_qgemm(qg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     result = {}
     for frames in QGEMM_FRAMES:
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, ops=0.0, bound_ms=0.0)
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, ops=0.0, bound_ms=0.0)
         worst = dict(quanta=0, frac=0.0, clipped=0.0)
         for (rows, k, n, res, relu), count in shapes.items():
             m = frames * rows
@@ -607,20 +708,23 @@ def check_qgemm(qg) -> dict:
 
             iters = 10 if frames == FRAMES else 5
             ms = time_ms(lambda: qg.qgemm_s8(x, w, factor, bias, out_amax, **kw), iters=iters)
+            dev = device_ms(lambda: qg.qgemm_s8(x, w, factor, bias, out_amax, **kw), QGEMM_KERNELS, iters=iters)
             plain = time_ms(lambda: qg.qgemm_s8_reference(x, w, factor, bias, out_amax, **kw), iters=3, warmup=1)
             lib = time_ms(library, iters=3, warmup=1)
             nbytes = m * k + n * k + m * n * (2 if res else 1) + 8 * n
             ops = 2 * m * k * n
             b, by = bound_ms(nbytes, ops, torch.int8)
-            log(f"time qgemm_s8 {frames} frames {name} x{count}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"_int_mm+epilogue {lib:.4f} ms, bound {b:.4f} ms ({by}), {ops / ms / 1e9:.1f} TOPS, "
-                f"{nbytes / ms / 1e6:.1f} GB/s")
-            for key, v in dict(ms=ms, plain_ms=plain, library_ms=lib, nbytes=nbytes, ops=ops, bound_ms=b).items():
+            log(f"time qgemm_s8 {frames} frames {name} x{count}{plan_note('qgemm_s8', m, k, n)}: kernel {ms:.4f} ms "
+                f"(device {dev:.4f}), plain {plain:.4f} ms, _int_mm+epilogue {lib:.4f} ms, bound {b:.4f} ms ({by}), "
+                f"{ops / ms / 1e9:.1f} TOPS, {nbytes / ms / 1e6:.1f} GB/s")
+            for key, v in dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib, nbytes=nbytes, ops=ops,
+                               bound_ms=b).items():
                 tot[key] += v * count
             del x, w, r, got, fb, w_kn
             torch.cuda.empty_cache()
         b, by = bound_ms(tot["nbytes"], tot["ops"], torch.int8)
-        log(f"time qgemm_s8 one {frames}-frame trunk forward (36 launches): kernel {tot['ms']:.3f} ms, plain "
+        log(f"time qgemm_s8 one {frames}-frame trunk forward (36 launches): kernel {tot['ms']:.3f} ms (device "
+            f"{tot['device_ms']:.3f}), plain "
             f"{tot['plain_ms']:.3f} ms, _int_mm+epilogue {tot['library_ms']:.3f} ms, bound {b:.3f} ms ({by}; "
             f"{tot['nbytes'] / 1e9:.2f} GB, {tot['ops'] / 1e12:.2f} Tops; per-launch bounds summed "
             f"{tot['bound_ms']:.3f} ms); worst {worst}")
@@ -1475,14 +1579,51 @@ def check_embed_train_against_cpu() -> None:
         raise AssertionError("CUDA and CPU embedding train steps differ")
 
 
+def trunk_gemms(package_root) -> int:
+    """``--trunk-gemms``: build ``matmul_stats`` and ``qgemm_s8`` from the
+    checkout at ``package_root`` (default: this one), hold each against its
+    plain version and time it at the trunk's shapes, as the full run does.
+    Prints no result line: this is a measurement, not the smoke run."""
+    if package_root is not None:
+        sys.path.insert(0, package_root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from acoustic_image_generation_tpu_torch.ops import build
+    from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
+    from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+
+    log(f"trunk GEMMs of {build.CSRC.parent}: device {torch.cuda.get_device_name(0)}, seed {SEED}")
+    report = build.build(("matmul_stats", "qgemm_s8"))
+    for name, (secs, text) in report.items():
+        log(f"build {name}: {secs:.2f} s")
+        for line in text.splitlines():
+            if re.search(r"entry function|registers|spill|warning|error", line):
+                log(f"  {line.strip()}")
+
+    class Task:
+        dtype = torch.bfloat16
+
+    with torch.no_grad():
+        entries = [check_matmul_stats(cs, Task), check_qgemm(qg)]
+    log(json.dumps({"trunk_gemms": entries}))
+    return 0
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=SEED, help="seed of the weights and the data")
-    SEED = parser.parse_args().seed
+    parser.add_argument("--trunk-gemms", action="store_true",
+                        help="only build, check and time the trunk's GEMM kernels (matmul_stats, qgemm_s8)")
+    parser.add_argument("--package-root", default=None,
+                        help="with --trunk-gemms: import the port from this checkout (e.g. a parent commit's)")
+    args = parser.parse_args()
+    SEED = args.seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.trunk_gemms:
+        return trunk_gemms(args.package_root)
     # IEEE f32 wherever f32 is compared: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
