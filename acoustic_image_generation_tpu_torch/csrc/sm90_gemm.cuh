@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the trunk's GEMM kernels,
 // csrc/matmul_stats.cu (bf16) and csrc/qgemm_s8.cu (s8): 16-byte cp.async
-// with zero fill, the 128-byte swizzle that wgmma reads, wgmma shared-memory
-// descriptors, fences, and the wgmma instructions at the N tiles the two
-// kernels use. Lifted from csrc/conv_chain.cu's namespace sm90, where they
-// were first checked on the card; conv_chain.cu keeps its own copy.
+// with zero fill (from cp_async.cuh), the 128-byte swizzle that wgmma
+// reads, wgmma shared-memory descriptors, fences, and the wgmma
+// instructions at the N tiles the two kernels use. Lifted from
+// csrc/conv_chain.cu's namespace sm90, where they were first checked on the
+// card; conv_chain.cu keeps its own copy.
 //
 // Tile layout of every operand tile: rows of 128 bytes (64 bf16 or 128 s8
 // values of K, or 64 bf16 values of N for an MN-major tile), 16-byte chunk q
@@ -14,23 +15,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace sm90gemm {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One 16-byte cp.async through L2 only; with !valid it reads nothing and
-// writes zeros (source size 0), which is how the kernels pad ragged edges.
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using cp_async::copy16;
+using cp_async::copy_commit;
+using cp_async::copy_wait;
+using cp_async::smem_addr;
 
 // Byte offset of 16-byte chunk q (0..7) of row r in a tile of 128-byte rows
 // with the 128-byte swizzle: the chunk moves to position q ^ (r % 8) of its

@@ -1,163 +1,191 @@
-// STFT magnitude of one-second audio windows for sm_90a.
+// STFT magnitude of one-second audio windows for sm_90a, as FFTs in shared
+// memory.
 //
 // Replaces acoustic_image_generation_tpu/ops/pallas_stft.py::stft_pallas
 // (its _kernel). For every second of 12288 samples: 99 frames of 246
-// samples at hop 122 (neighbours overlap by 124), each multiplied against
-// the (246, 257) cos and -sin bases of the 512-point rDFT with the periodic
-// Hann window folded in, then |re + i im|.
+// samples at hop 122 (neighbours overlap by 124), each multiplied by the
+// periodic Hann window, zero-padded to 512, through the 512-point real FFT,
+// then |re + i im| for bins 0..256.
 //
-// Precision: every product and sum is an IEEE f32 FMA on the CUDA cores,
-// summed over the frame's samples in order. The audio is int16-range and
-// the DFT sums cancel heavily, so the tensor cores' TF32 or bf16 paths
-// would put errors of about 1e-3 of the peak magnitude into the output.
+// Algorithm: the real FFT is a 256-point complex FFT over the (even, odd)
+// sample pairs (points 123..255 are the zero padding), Stockham passes of
+// radix 8, 8 and 4 in shared memory, then the real-split step (dsp/fft.py
+// states the schedule and builds the tables: twiddles, split constants).
 //
-// Bound on an H100: 99 x 246 x 257 x 2 FMAs per second (25.0 MFLOP); the
-// input is 48 KB and the output 102 KB per second, so at 67 TFLOP/s of f32
-// outside the tensor cores the card is bound by operations (0.37 us a
-// second) before bytes (0.045 us).
+// Precision: the arithmetic is float64 on the FP64 units with float64
+// tables; the magnitude is rounded once to float32. The plain version is
+// two float32 products against float32 bases, so the two are no longer
+// bit-equal: they differ by the plain version's own rounding (about 6e-7
+// of the peak magnitude on int16-range audio).
 //
-// Design: one block per (second, tile of 64 bins); 257 bins make five
-// tiles, the last holding only the Nyquist bin (masked). The second's 12288
-// samples are copied into shared memory once (cp.async, 16 bytes a thread)
-// and the 99 overlapping frames are read from there, never materialized.
-// The bases, zero-padded by the wrapper to (256, 320) so that every copy is
-// a whole 16-byte chunk, stream through two shared-memory stages of kRows
-// rows with cp.async: the next rows are in flight while the threads
-// multiply the current ones. Thread t owns bin t % 64 of the tile and the
-// frames (t / 64) + 4 i, i < 25: a warp shares its frames, so each sample
-// read is a broadcast, and its 32 bins are 32 consecutive basis words.
-// Per sample row: two basis loads, 25 broadcast sample loads, 50 FMAs. The
-// frame past the 99th (thread group 3's 25th) reads the zeroed tail of the
-// sample buffer and is never written.
-// Known limit: 5 blocks a second, so a request of 8 seconds runs 40 blocks
-// on 132 SMs; the shared-memory loads match the FMAs nearly one for two.
+// Bound on an H100: by bytes, narrowly. Each second reads 48 KB and writes
+// 102 KB (0.045 us at 3.35 TB/s); its FFTs are about 1.5 MFLOP (0.044 us at
+// FP64's 34 TFLOP/s). The kernel is short, so its time is latency.
+//
+// Design: one block per (second, group of 9 frames), 11 groups a second,
+// so 8 seconds run 88 blocks. The group's span of samples (at most 1224
+// floats) is copied into shared memory with 16-byte cp.async, once; the
+// overlapping frames are read from there, never materialized. One warp per
+// frame, so the passes synchronize the warp only: each lane owns one
+// radix-8 butterfly in passes 1-2 and two radix-4 butterflies in pass 3,
+// reads its points, __syncwarp, writes them in place. The first pass reads
+// the windowed samples straight from the span (a lane's window values sit
+// in registers for every frame). The buffer is padded by one point in 8
+// (pad()), which keeps the strided writes of passes 1-2 free of bank
+// conflicts. Each warp writes its frame's 257 magnitudes as one coalesced
+// row.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+#include "fft.cuh"
+
 namespace {
+
+using namespace aig_fft;
+using cp_async::copy16;
+using cp_async::copy_commit;
+using cp_async::copy_wait;
+using cp_async::smem_addr;
 
 constexpr int kSamples = 12288;    // one second
 constexpr int kFrameLength = 246;
 constexpr int kFrameStep = 122;
 constexpr int kFrames = 99;
-constexpr int kBins = 257;
-constexpr int kPadRows = 256;      // basis rows, zero-padded from 246
-constexpr int kPadBins = 320;      // basis columns, zero-padded from 257
-constexpr int kTileBins = 64;
-constexpr int kTiles = kPadBins / kTileBins;  // 5
-constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / kTileBins;  // 4 frame groups
-constexpr int kPerThread = (kFrames + kGroups - 1) / kGroups;  // 25 frames a thread
-constexpr int kRows = 16;          // basis rows per pipeline stage
-constexpr int kChunks = kPadRows / kRows;
+constexpr int kPoints = 256;       // complex FFT points
+constexpr int kBins = kPoints + 1;
+constexpr int kPairs = kFrameLength / 2;  // nonzero complex points
+constexpr int kGroup = 9;          // frames a block, one warp each
+constexpr int kGroups = kFrames / kGroup;
+constexpr int kThreads = 32 * kGroup;
+// the group's samples from the 16-byte boundary at or below its first
+// frame's first sample (at most 2 samples before it), in whole float4s
+constexpr int kSpan = ((kGroup - 1) * kFrameStep + kFrameLength + 2 + 3) / 4 * 4;
 
-// the furthest sample any thread reads, rounded up to whole float4s
-constexpr int kXsFloats = ((kGroups * kPerThread - 1) * kFrameStep + kFrameLength + 3) / 4 * 4;
-constexpr int kStageFloats = kRows * 2 * kTileBins;  // cos rows then sin rows
-constexpr size_t kSmemBytes = (kXsFloats + 2 * kStageFloats) * sizeof(float);  // 65,680
-
-static_assert(kTiles * kTileBins >= kBins, "tiles cover the bins");
-static_assert(kGroups * kPerThread >= kFrames, "threads cover the frames");
-static_assert(kChunks * kRows >= kFrameLength, "stages cover the frame");
-static_assert(kSamples % 4 == 0 && kXsFloats >= kSamples, "sample buffer");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+static_assert(kGroups * kGroup == kFrames, "groups cover the frames");
+static_assert(kFrameLength % 2 == 0 && kFrameStep % 2 == 0, "frames start on a complex point");
+static_assert(kPoints == 8 * 8 * 4 && kPoints / 8 == 32, "passes of radix 8, 8 and 4");
+static_assert((kFrames - kGroup) * kFrameStep / 4 * 4 + kSpan <= kSamples, "the last span stays in the second");
 
 __global__ void __launch_bounds__(kThreads)
-stft_kernel(const float* __restrict__ x,      // (n, 12288)
-            const float* __restrict__ cos_b,  // (256, 320), zero-padded
-            const float* __restrict__ sin_b,  // (256, 320), zero-padded
-            float* __restrict__ out) {         // (n, 99, 257)
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // the second's samples, then zeros
-  float* stages = smem + kXsFloats;          // 2 x (cos[kRows][64], sin[kRows][64])
+stft_kernel(const float* __restrict__ x,          // (n, 12288)
+            const double2* __restrict__ tw,       // (256,) exp(-2 pi i m / 256)
+            const double2* __restrict__ split_a,  // (257,) real-split constants
+            const double2* __restrict__ split_b,  // (257,)
+            const double* __restrict__ window,    // (246,) periodic Hann
+            float* __restrict__ out) {            // (n, 99, 257)
+  __shared__ __align__(16) float xs[kSpan];
+  __shared__ double2 bufs[kGroup][kPoints + kPoints / 8];
 
-  const int t = threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long sec = blockIdx.x;
-  const int b0 = blockIdx.y * kTileBins;
+  const int f0 = blockIdx.y * kGroup;
+  const int s0 = (f0 * kFrameStep) & ~3;
 
-  // Rows [r0, r0 + kRows) of the tile's columns of both bases into stage s.
-  auto issue = [&](int r0, int s) {
-    float* dst = stages + s * kStageFloats;
-    for (int i = t; i < kStageFloats / 4; i += kThreads) {
-      const int e = i * 4;                       // float index inside the stage
-      const int half = e / (kRows * kTileBins);  // 0 = cos, 1 = sin
-      const int r = (e / kTileBins) % kRows;
-      const int col = e % kTileBins;
-      const float* src = (half ? sin_b : cos_b) + (size_t)(r0 + r) * kPadBins + b0 + col;
-      cp_async16(dst + e, src);
-    }
-  };
+  const float* xsec = x + sec * kSamples + s0;
+  for (int i = threadIdx.x; i < kSpan / 4; i += kThreads) copy16(smem_addr(xs + 4 * i), xsec + 4 * i, true);
+  copy_commit();
 
-  const float* xsec = x + sec * kSamples;
-  for (int i = t; i < kSamples / 4; i += kThreads) cp_async16(xs + 4 * i, xsec + 4 * i);
-  for (int i = kSamples + t; i < kXsFloats; i += kThreads) xs[i] = 0.f;
-  issue(0, 0);
-  cp_async_commit();
-
-  const int bin = t % kTileBins;
-  const int g = t / kTileBins;
-  float re[kPerThread], im[kPerThread];
+  // while the span arrives: the lane's window values (points lane + 32r,
+  // r < 4) and its twiddles (pass 2: points 1..7 of butterfly lane; pass 3:
+  // points 1..3 of butterflies lane and lane + 32)
+  double2 win[4];
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) re[i] = im[i] = 0.f;
-
-  for (int c = 0; c < kChunks; ++c) {
-    if (c + 1 < kChunks) {
-      issue((c + 1) * kRows, (c + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* cs = stages + (c & 1) * kStageFloats;
-    const float* ss = cs + kRows * kTileBins;
-    const int k0 = c * kRows;
-    const int rows = min(kRows, kFrameLength - k0);  // the padded rows are skipped
-    for (int r = 0; r < rows; ++r) {
-      const float cv = cs[r * kTileBins + bin];
-      const float sv = ss[r * kTileBins + bin];
-      const float* xk = xs + g * kFrameStep + k0 + r;
+  for (int r = 0; r < 4; ++r) {
+    const int m = lane + 32 * r;
+    win[r] = m < kPairs ? __ldg(reinterpret_cast<const double2*>(window) + m) : make_double2(0.0, 0.0);
+  }
+  double2 w2[7], w3[2][3];
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const float xv = xk[i * kGroups * kFrameStep];
-        re[i] = fmaf(xv, cv, re[i]);
-        im[i] = fmaf(xv, sv, im[i]);
-      }
+  for (int r = 1; r < 8; ++r) w2[r - 1] = __ldg(tw + r * (lane % 8) * (kPoints / 64));
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int r = 1; r < 4; ++r) w3[b][r - 1] = __ldg(tw + r * (lane + 32 * b));
+
+  copy_wait<0>();
+  __syncthreads();
+
+  double2* buf = bufs[warp];
+  const int f = f0 + warp;
+  const float* frame = xs + f * kFrameStep - s0;
+
+  // pass 1 (ns = 1): butterfly lane from the windowed points lane + 32r;
+  // points 128..255 are zero padding, and so are 123..127
+  {
+    double2 v[8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = lane + 32 * r;
+      const float2 s = m < kPairs ? *reinterpret_cast<const float2*>(frame + 2 * m) : make_float2(0.f, 0.f);
+      v[r] = make_double2((double)s.x * win[r].x, (double)s.y * win[r].y);
     }
-    // The stage read here is refilled by the next step's issue.
-    __syncthreads();
+#pragma unroll
+    for (int r = 4; r < 8; ++r) v[r] = make_double2(0.0, 0.0);
+    dft8(v);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) buf[pad(8 * lane + r)] = v[r];
+    __syncwarp();
+  }
+  // pass 2 (ns = 8): butterfly lane, k = lane mod 8
+  {
+    double2 v[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) v[r] = buf[pad(lane + 32 * r)];
+    __syncwarp();
+#pragma unroll
+    for (int r = 1; r < 8; ++r) v[r] = cmul(v[r], w2[r - 1]);
+    dft8(v);
+    const int base = (lane / 8) * 64 + lane % 8;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) buf[pad(base + 8 * r)] = v[r];
+    __syncwarp();
+  }
+  // pass 3 (ns = 64, radix 4): butterflies lane and lane + 32, k = j
+  {
+    double2 v[2][4];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[b][r] = buf[pad(lane + 32 * b + 64 * r)];
+    __syncwarp();
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int r = 1; r < 4; ++r) v[b][r] = cmul(v[b][r], w3[b][r - 1]);
+      dft4(v[b][0], v[b][1], v[b][2], v[b][3]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) buf[pad(lane + 32 * b + 64 * r)] = v[b][r];
+    }
+    __syncwarp();
   }
 
-  if (b0 + bin < kBins) {
-    float* o = out + sec * kFrames * kBins + b0 + bin;
+  // real split and magnitude of bins lane + 32q, 0 <= q <= 8
+  float* o = out + (sec * kFrames + f) * kBins;
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int f = g + i * kGroups;
-      if (f < kFrames) o[f * kBins] = sqrtf(__fadd_rn(__fmul_rn(re[i], re[i]), __fmul_rn(im[i], im[i])));
+  for (int q = 0; q < (kBins + 31) / 32; ++q) {
+    const int k = lane + 32 * q;
+    if (k < kBins) {
+      const double2 z = buf[pad(k & (kPoints - 1))];
+      const double2 zm = buf[pad((kPoints - k) & (kPoints - 1))];
+      const double2 X = cadd(cmul(z, __ldg(split_a + k)), cmul(make_double2(zm.x, -zm.y), __ldg(split_b + k)));
+      o[k] = __double2float_rn(sqrt(X.x * X.x + X.y * X.y));
     }
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). n > 0 seconds; x,
-// cos_b and sin_b 16-byte aligned (they are copied with 16-byte cp.async).
-extern "C" int aig_stft(const float* x, int n, const float* cos_b, const float* sin_b, float* out,
+// Returns the cudaError_t of the launch (0 on success). n > 0 seconds; x
+// 16-byte aligned (it is copied with 16-byte cp.async). Static shared
+// memory only (46.4 KB), so no function attribute is set.
+extern "C" int aig_stft(const float* x, int n, const double* tw, const double* split_a,
+                        const double* split_b, const double* window, float* out,
                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, kTiles);
-  stft_kernel<<<grid, kThreads, kSmemBytes, stream>>>(x, cos_b, sin_b, out);
+  const dim3 grid(n, kGroups);
+  stft_kernel<<<grid, kThreads, 0, stream>>>(
+      x, reinterpret_cast<const double2*>(tw), reinterpret_cast<const double2*>(split_a),
+      reinterpret_cast<const double2*>(split_b), window, out);
   return (int)cudaGetLastError();
 }

@@ -97,6 +97,14 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.cache
+def device_tables(kernel_tables, device: torch.device) -> tuple[tuple[torch.Tensor, ...], tuple[int, ...]]:
+    """The arrays ``kernel_tables()`` returns, uploaded to ``device`` once,
+    in order, with their pointers."""
+    tables = tuple(torch.from_numpy(a).to(device) for a in kernel_tables().values())
+    return tables, tuple(t.data_ptr() for t in tables)
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:

@@ -2,7 +2,9 @@
 
 Port of ``acoustic_image_generation_tpu/ops/pallas_mfcc.py::mfcc_pallas``.
 The plain version is ``dsp.mfcc.mfcc_from_frames``. A tensor on the CPU
-takes the plain version; a CUDA tensor launches the kernel or raises.
+takes the plain version; a CUDA tensor launches the kernel or raises. The
+kernel runs an FFT (``dsp.fft``) on the tables of ``kernel_tables``, which
+the wrapper uploads once per device.
 """
 
 from __future__ import annotations
@@ -10,20 +12,40 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
+from acoustic_image_generation_tpu_torch.dsp import fft
 from acoustic_image_generation_tpu_torch.dsp import mel as mel_mod
-from acoustic_image_generation_tpu_torch.dsp.mfcc import device_constants, mfcc_from_frames
+from acoustic_image_generation_tpu_torch.dsp.mfcc import mfcc_from_frames
 from acoustic_image_generation_tpu_torch.ops import build
 
 mfcc_plain = mfcc_from_frames
 
 
 @functools.cache
+def kernel_tables() -> dict[str, np.ndarray]:
+    """The tables ``csrc/mfcc.cu`` reads, in the order of its arguments:
+    float64, built in float64 (the mel spans int32)."""
+    c = mel_mod.constants()
+    split_a, split_b = fft.real_split(mel_mod.N_SAMPLES)
+    spans, weights = fft.mel_spans(c.filter_mat)
+    return dict(
+        twiddles=fft.as_pairs(fft.twiddles(mel_mod.N_SAMPLES // 2)),
+        split_a=fft.as_pairs(split_a[:mel_mod.FFT_LEN]),  # the Nyquist bin is dropped
+        split_b=fft.as_pairs(split_b[:mel_mod.FFT_LEN]),
+        window=np.asarray(c.window, np.float64),
+        mel_spans=spans,
+        mel_weights=weights,
+        dct=np.ascontiguousarray(c.dct_lifter, np.float64),
+    )
+
+
+@functools.cache
 def _entry():
     fn = build.library("mfcc").aig_mfcc
     p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p]
+    fn.argtypes = [p, ctypes.c_int, *[p] * len(kernel_tables()), p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -43,6 +65,8 @@ def mfcc(frames: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mfcc runs on cpu or cuda, got {frames.device}")
     if not frames.is_contiguous():
         raise ValueError("mfcc takes contiguous frames")
+    if frames.data_ptr() % 16:
+        raise ValueError("mfcc takes 16-byte aligned frames")
     lead = frames.shape[:-1]
     x = frames.reshape(-1, mel_mod.N_SAMPLES)
     n = x.shape[0]
@@ -51,13 +75,10 @@ def mfcc(frames: torch.Tensor) -> torch.Tensor:
         return out.reshape(*lead, mel_mod.MFCC_NUM)
     if n >= 2**31:
         raise ValueError(f"too many frames for one launch: {n}")
-    cos_b, sin_b, mel_b, dct_b = device_constants(x.device)
+    tables = build.device_tables(kernel_tables, x.device)[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry()(
-            x.data_ptr(), n, cos_b.data_ptr(), sin_b.data_ptr(), mel_b.data_ptr(),
-            dct_b.data_ptr(), out.data_ptr(), stream,
-        )
+        rc = _entry()(x.data_ptr(), n, *tables, out.data_ptr(), stream)
     build.check(rc, "mfcc")
     mfcc.launches += 1
     return out.reshape(*lead, mel_mod.MFCC_NUM)

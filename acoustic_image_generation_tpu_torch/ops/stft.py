@@ -1,10 +1,12 @@
 """The STFT magnitude kernel (``csrc/stft.cu``) and its wrapper.
 
 Port of ``acoustic_image_generation_tpu/ops/pallas_stft.py::stft_pallas``.
-The plain version is ``dsp.spectrogram.stft_magnitude``; both use the same
-float32 bases (``dsp.spectrogram._dft_bases``), which the kernel reads
-zero-padded to (256, 320). A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises.
+The plain version is ``dsp.spectrogram.stft_magnitude`` (two float32
+products against the DFT bases); the kernel runs an FFT (``dsp.fft``) in
+float64 on the tables of ``kernel_tables``, which the wrapper uploads once
+per device, so the two agree to the plain version's rounding, not bit for
+bit. A tensor on the CPU takes the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -12,31 +14,36 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
+from acoustic_image_generation_tpu_torch.dsp import fft
 from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
 from acoustic_image_generation_tpu_torch.ops import build
 
 stft_plain = spec.stft_magnitude
-PAD_ROWS, PAD_BINS = 256, 320  # the kernel's zero-padded basis shape
+
+
+@functools.cache
+def kernel_tables() -> dict[str, np.ndarray]:
+    """The tables ``csrc/stft.cu`` reads, in the order of its arguments,
+    float64."""
+    split_a, split_b = fft.real_split(spec.FFT_LENGTH)
+    return dict(
+        twiddles=fft.as_pairs(fft.twiddles(spec.FFT_LENGTH // 2)),
+        split_a=fft.as_pairs(split_a),
+        split_b=fft.as_pairs(split_b),
+        window=spec.hann_periodic(),
+    )
 
 
 @functools.cache
 def _entry():
     fn = build.library("stft").aig_stft
     p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int, p, p, p, p]
+    fn.argtypes = [p, ctypes.c_int, *[p] * len(kernel_tables()), p, p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def padded_bases(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version's f32 bases, zero-padded to (256, 320), once per
-    device."""
-    pad = (0, PAD_BINS - spec.NUM_BINS, 0, PAD_ROWS - spec.FRAME_LENGTH)
-    return tuple(F.pad(b, pad).contiguous() for b in spec.device_bases(device))
 
 
 def stft(wav: torch.Tensor) -> torch.Tensor:
@@ -66,10 +73,10 @@ def stft(wav: torch.Tensor) -> torch.Tensor:
         return out.reshape(*lead, spec.NUM_FRAMES, spec.NUM_BINS)
     if n >= 2**31:
         raise ValueError(f"too many seconds for one launch: {n}")
-    cos_b, sin_b = padded_bases(x.device)
+    tables = build.device_tables(kernel_tables, x.device)[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry()(x.data_ptr(), n, cos_b.data_ptr(), sin_b.data_ptr(), out.data_ptr(), stream)
+        rc = _entry()(x.data_ptr(), n, *tables, out.data_ptr(), stream)
     build.check(rc, "stft")
     stft.launches += 1
     return out.reshape(*lead, spec.NUM_FRAMES, spec.NUM_BINS)

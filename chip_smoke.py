@@ -2,23 +2,28 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --trunk-gemms [--package-root DIR]
+    python3 chip_smoke.py --frontends [--package-root DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 imports nothing of JAX. ``--trunk-gemms`` runs only phase 2's checks and
-times of ``matmul_stats`` and ``qgemm_s8`` (of the checkout at ``DIR``,
-such as a parent commit's, with ``--package-root``) and prints no result
-line. Phases, each fatal on failure:
+times of ``matmul_stats`` and ``qgemm_s8``, ``--frontends`` those of
+``mfcc`` and ``stft`` (of the checkout at ``DIR``, such as a parent
+commit's, with ``--package-root``); neither prints a result line. Phases, each fatal on
+failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it (serving: 96 frames; training: 768 frames; the
    f32 backward against a float64 witness), and time kernel, plain version
-   and a library yardstick with CUDA events; the ``conv_chain`` backward
-   also launch by launch (gate, weight grad, data grad of each layer), and
-   its channel padding (133 -> 136) is checked for leaks; ``matmul_stats``
-   and ``qgemm_s8`` at every shape of one trunk forward's 36 launches, with
+   and a library yardstick with CUDA events (``mfcc`` and ``stft`` also by
+   the profiler's device time and by the host's time per call, both in
+   their ``kernels`` entries; ``mfcc`` also against a float64 witness on
+   noise and on a loud tone); the ``conv_chain`` backward also launch by
+   launch (gate, weight grad, data grad of each layer), and its channel
+   padding (133 -> 136) is checked for leaks; ``matmul_stats`` and
+   ``qgemm_s8`` at every shape of one trunk forward's 36 launches, with
    per-launch bounds and launch plans;
 3. serve full-width bf16 requests (ResNet50 3/4/6/3 + UNetAcResNet 1-skip
    VAE, random weights from the seed, 96 frames each) through
@@ -80,7 +85,8 @@ TRAIN_CLIPS = 64  # the JAX package's uncached train-step batch (bench.py)
 TRAIN_FRAMES = 12 * TRAIN_CLIPS
 TRAIN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}  # dense, no TF32
+# dense, no TF32; float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12, torch.float64: 34e12}
 MFCC_TOL = dict(rtol=2e-3, atol=2e-3)
 CHAIN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 PATH_TOL = 1e-3  # CUDA vs CPU serving output, f32, sigmoid scale
@@ -199,36 +205,133 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn``, in us, without waiting for the card:
+    what the wrapper costs the host, which bounds a stream of calls when it
+    exceeds the kernel's time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernel_times(fn, pattern: str) -> dict:
+    """A call's time three ways: CUDA events per call (``ms``), the device
+    time of its kernels matching ``pattern`` by the profiler
+    (``device_ms``), and the host's time per call (``host_us``)."""
+    return dict(ms=time_ms(fn), device_ms=device_ms(fn, pattern), host_us=host_us(fn))
+
+
+def entry_times(kernel: dict, plain: dict, library: dict) -> dict:
+    """A frontend kernel's times in its ``kernels`` entry: ``ms``,
+    ``plain_ms`` and ``library_ms`` by CUDA events, as every entry's, and
+    the profiler's device times beside them (``device_ms``,
+    ``plain_device_ms``, ``library_device_ms``) with the wrapper's host us a
+    call (``host_us``): these kernels run 5-10 us, under the host's time a
+    call, so events over back-to-back calls read the host."""
+    return dict(ms=kernel["ms"], plain_ms=plain["ms"], library_ms=library["ms"], device_ms=kernel["device_ms"],
+                plain_device_ms=plain["device_ms"], library_device_ms=library["device_ms"],
+                host_us=kernel["host_us"])
+
+
+def frontend_times(kernel: dict, plain: dict, library_name: str, library: dict, bounds: dict) -> str:
+    """One log line of a frontend kernel's times and bounds."""
+    def ms(t):
+        return f"{t['device_ms']:.4f} ms on the device ({t['ms']:.4f} by events, {t['host_us']:.1f} us of host)"
+
+    return (f"kernel {ms(kernel)}; plain {ms(plain)}; {library_name} {ms(library)}; bound "
+            f"{bounds['bound_ms']:.5f} ms ({bounds['bound_by']}; FFT, {bounds['nbytes'] / 1e6:.3f} MB, "
+            f"{bounds['flops'] / 1e6:.2f} MFLOP) [DFT product: {bounds['dft_bound_ms']:.4f} ms]")
+
+
+def tone_frames(rng, n: int) -> np.ndarray:
+    """A loud tone over a quiet floor: in each frame a sine of amplitude
+    20000 at a random frequency (20-400 cycles a frame) and phase, plus
+    integer noise in [-1, 1], rounded to integers (tests/test_torch_mfcc.py
+    draws the same)."""
+    t = np.arange(1024)
+    cycles = rng.uniform(20, 400, (n, 1))
+    phase = rng.uniform(0, 2 * np.pi, (n, 1))
+    x = 20000 * np.sin(2 * np.pi * cycles * t / 1024 + phase) + rng.integers(-1, 2, (n, 1024))
+    return np.round(x).astype(np.float32)
+
+
+def mfcc_bounds(n: int) -> dict:
+    """Bounds of ``n`` frames: the FFT's (the function's bytes moved once:
+    samples, outputs, and the window, the mel filters' nonzeros and the DCT
+    in f32; the operations of what the kernel runs: window, 512-point FFT
+    at 5 N log2 N, split, power, the mel spans, log and DCT, at the FP64
+    peak) and, for comparison with the DFT kernel it replaced, the DFT
+    product's (its two 4 MB f32 bases, at the f32 peak)."""
+    from acoustic_image_generation_tpu_torch.dsp import mel
+
+    nnz = int(np.count_nonzero(mel.create_filters()))
+    io = n * (1024 + 12) * 4
+    tables = (1024 + nnz + 24 * 12) * 4
+    fft_ops = n * (1024 + 5 * 512 * 9 + 512 * 14 + 3 * 512 + 2 * nnz + 24 + 2 * 24 * 12)
+    dft_bytes = io + (2 * 1024 * 512 + 512 * 24 + 24 * 12) * 4
+    dft_ops = n * (2 * 2 * 1024 * 512 + 3 * 512 + 2 * 512 * 24 + 2 * 24 * 12)
+    b, by = bound_ms(io + tables, fft_ops, torch.float64)
+    return dict(bound_ms=b, bound_by=by, nbytes=io + tables, flops=fft_ops,
+                dft_bound_ms=bound_ms(dft_bytes, dft_ops, torch.float32)[0])
+
+
 def check_mfcc(mk) -> dict:
-    from acoustic_image_generation_tpu_torch.dsp.mfcc import device_constants
+    """The ``mfcc`` kernel against its plain version at a request's 96
+    frames, a train step's 768 and two ragged counts; times at 96 and 768
+    frames beside the plain version, the ``torch.fft.rfft`` route and both
+    bounds; then against a float64 witness (the host oracle) beside the
+    plain version, on int16 noise and on a loud tone. Returns the 96-frame
+    line of ``kernels``."""
+    from acoustic_image_generation_tpu_torch.dsp import mel
+    from acoustic_image_generation_tpu_torch.dsp.mfcc import device_constants, mfcc_numpy_oracle
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     errs = []
-    for n in (FRAMES, 1000, 5):
+    for n in (FRAMES, TRAIN_FRAMES, 1000, 5):
         x = torch.randint(-(2**15), 2**15, (n, 1024), generator=g, device="cuda").float()
         errs.append(compare(f"mfcc n={n}", mk.mfcc(x), mk.mfcc_plain(x), MFCC_TOL))
-    x = torch.randint(-(2**15), 2**15, (FRAMES, 1024), generator=g, device="cuda").float()
-    ms = time_ms(lambda: mk.mfcc(x))
-    plain = time_ms(lambda: mk.mfcc_plain(x))
-    consts = device_constants(x.device)
-    nbytes = x.numel() * 4 + sum(c.numel() * 4 for c in consts) + FRAMES * 12 * 4
-    cos_b, _, mel_b, dct_b = consts
-    flops = FRAMES * (
-        2 * 2 * cos_b.shape[0] * cos_b.shape[1]  # two DFT GEMMs
-        + 3 * cos_b.shape[1]  # power
-        + 2 * mel_b.numel() + 2 * dct_b.numel()
-    )
-    b, by = bound_ms(nbytes, flops, torch.float32)
-    log(f"time mfcc n={FRAMES}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
-        f"{flops / ms / 1e9:.3f} TFLOP/s")
-    return dict(
-        name="mfcc", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/mfcc.cu",
-        replaces="acoustic_image_generation_tpu/ops/pallas_mfcc.py:86",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        # no single PyTorch call computes the MFCC; the plain version is
-        # itself the torch.matmul chain
-        library_ms=None,
-    )
+    _, _, mel_b, dct_b = device_constants(torch.device("cuda", torch.cuda.current_device()))
+    window = torch.from_numpy(mel.constants().window.astype(np.float32)).cuda()
+
+    def library(x):
+        # several calls: cuFFT's rfft, then the plain version's tail
+        spec = torch.fft.rfft(x * window, dim=-1)[..., :mel.FFT_LEN]
+        coeffs = torch.log(torch.clamp_min((spec.real.square() + spec.imag.square()) @ mel_b,
+                                           mel.MELSPEC_FLOOR)) @ dct_b
+        return torch.where(torch.isfinite(coeffs), coeffs, torch.zeros_like(coeffs))
+
+    entry = None
+    for n in (FRAMES, TRAIN_FRAMES):
+        x = torch.randint(-(2**15), 2**15, (n, 1024), generator=g, device="cuda").float()
+        compare(f"mfcc n={n}: the torch.fft.rfft route", library(x), mk.mfcc_plain(x), MFCC_TOL)
+        t = kernel_times(lambda: mk.mfcc(x), "mfcc_kernel")
+        plain = kernel_times(lambda: mk.mfcc_plain(x), ".")
+        lib = kernel_times(lambda: library(x), ".")
+        b = mfcc_bounds(n)
+        log(f"time mfcc n={n}: " + frontend_times(t, plain, "torch.fft.rfft + tail", lib, b))
+        if entry is None:
+            entry = dict(
+                name="mfcc", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/mfcc.cu",
+                replaces="acoustic_image_generation_tpu/ops/pallas_mfcc.py:86",
+                max_abs_err=max(errs), bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                **entry_times(t, plain, lib),  # library: torch.fft.rfft + the tail, several calls
+            )
+    rng = np.random.default_rng(SEED + 17)
+    for what, frames in (("int16 noise", rng.integers(-(2**15), 2**15, (FRAMES, 1024)).astype(np.float32)),
+                         ("a loud tone", tone_frames(rng, FRAMES))):
+        x = torch.from_numpy(frames).cuda()
+        witness = torch.from_numpy(mfcc_numpy_oracle(frames)).cuda()
+        kernel, plain, lib = (float((f(x) - witness).abs().max()) for f in (mk.mfcc, mk.mfcc_plain, library))
+        log(f"check mfcc against the float64 witness, {what}, n={FRAMES}: kernel {kernel:.3e}, plain "
+            f"{plain:.3e} (limit: kernel at most 2x plain); the torch.fft.rfft route {lib:.3e}")
+        if not kernel <= 2 * plain:
+            raise AssertionError(f"mfcc on {what}: {kernel:.3e} off the float64 witness, plain {plain:.3e}")
+    return entry
 
 
 # (H, W) of every no-BN ConvConvPool stack, which runs on conv_chain: the
@@ -1231,12 +1334,31 @@ def check_against_cpu() -> None:
         raise AssertionError(f"CUDA and CPU serving paths differ by {err}")
 
 
+def stft_bounds(seconds: int) -> dict:
+    """Bounds of ``seconds`` of audio: the FFT's (the function's bytes moved
+    once: samples, magnitudes and the f32 window; the operations of what the
+    kernel runs: window, 256-point FFT at 5 N log2 N, split and magnitude
+    per frame, at the FP64 peak) and, for comparison with the DFT kernel it
+    replaced, the DFT product's (its f32 bases, at the f32 peak)."""
+    from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
+
+    frames = seconds * spec.NUM_FRAMES
+    io = (seconds * spec.SAMPLES_PER_SECOND + frames * spec.NUM_BINS) * 4
+    tables = spec.FRAME_LENGTH * 4
+    fft_ops = frames * (spec.FRAME_LENGTH + 5 * 256 * 8 + spec.NUM_BINS * (14 + 4))
+    dft_bytes = io + 2 * spec.FRAME_LENGTH * spec.NUM_BINS * 4
+    dft_ops = frames * spec.FRAME_LENGTH * spec.NUM_BINS * 2 * 2  # two GEMMs
+    b, by = bound_ms(io + tables, fft_ops, torch.float64)
+    return dict(bound_ms=b, bound_by=by, nbytes=io + tables, flops=fft_ops,
+                dft_bound_ms=bound_ms(dft_bytes, dft_ops, torch.float32)[0])
+
+
 def check_stft(st) -> dict:
     """The ``stft`` kernel against its plain version (TF32 off) at an
     embedding request's 8 seconds and a train step's 32, with a float64
-    witness on the same f32 bases beside it; times of kernel, plain version
-    and the ``torch.stft`` yardstick (cuFFT). Returns the 32-second line of
-    ``kernels``."""
+    witness on the plain version's f32 bases beside it; times of kernel,
+    plain version and the ``torch.stft`` yardstick (cuFFT) beside both
+    bounds. Returns the 32-second line of ``kernels``."""
     import torch.nn.functional as F
 
     from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
@@ -1270,19 +1392,16 @@ def check_stft(st) -> dict:
             raise AssertionError(f"stft: the limit {STFT_TOL} does not exclude a TF32 run ({tf32:.2e})")
         if err > STFT_TOL:
             raise AssertionError(f"stft {seconds} s: kernel off its plain version by {err:.2e} of the peak")
-        ms = time_ms(lambda: st.stft(x))
-        plain = time_ms(lambda: st.stft_plain(x))
-        lib = time_ms(library)
-        flops = seconds * spec.NUM_FRAMES * spec.FRAME_LENGTH * spec.NUM_BINS * 2 * 2  # two GEMMs
-        nbytes = (x.numel() + got.numel() + 2 * spec.FRAME_LENGTH * spec.NUM_BINS) * 4
-        b, by = bound_ms(nbytes, flops, torch.float32)
-        log(f"time stft {seconds} s: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.stft {lib:.4f} ms, bound "
-            f"{b:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.2f} TFLOP/s")
+        t = kernel_times(lambda: st.stft(x), "stft_kernel")
+        plain = kernel_times(lambda: st.stft_plain(x), ".")
+        lib = kernel_times(library, ".")
+        b = stft_bounds(seconds)
+        log(f"time stft {seconds} s: " + frontend_times(t, plain, "torch.stft", lib, b))
     return dict(
         name="stft", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/stft.cu",
         replaces="acoustic_image_generation_tpu/ops/pallas_stft.py:77",
-        max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=lib,
+        max_abs_err=float((got - want).abs().max()), bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+        **entry_times(t, plain, lib),
     )
 
 
@@ -1348,30 +1467,42 @@ def serve_embedding(service, counters: dict, per_request: dict) -> tuple[dict, l
 
 
 def embed_serving_stages(task, req) -> dict:
-    """Device time of each stage of one embedding request, by CUDA events;
-    each encoder stage includes its VAE head."""
+    """Device time of each stage of one embedding request, by CUDA events,
+    and the host's time to reach each stage's end; each encoder stage
+    includes its VAE head."""
     from acoustic_image_generation_tpu_torch.dsp.spectrogram import SAMPLES_PER_SECOND, resize_frames
     from acoustic_image_generation_tpu_torch.ops.stft import stft
 
     names = ("upload", "stft", "resize", "acoustic encoder", "audio encoder", "video encoder")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    host = [0.0] * (len(names) + 1)
+
+    def one_pass(mark):
+        torch.cuda.synchronize()
+        mark(0)
+        ac, audio, video = (torch.from_numpy(a).cuda() for a in req)
+        mark(1)
+        spec = stft(audio.reshape(-1, SAMPLES_PER_SECOND))
+        mark(2)
+        spec = resize_frames(spec)[..., None]
+        mark(3)
+        for i, (model, x) in enumerate(((task.acoustic, ac[::12]), (task.audio, spec), (task.video, video[::12]))):
+            model.vae(model.features(x))
+            mark(4 + i)
+        torch.cuda.synchronize()
+
+    def timed(i):
+        ev[i].record()
+        host[i] = time.perf_counter()
+
     with torch.inference_mode():
-        for _ in range(2):  # the second pass is the one reported
-            torch.cuda.synchronize()
-            ev[0].record()
-            ac, audio, video = (torch.from_numpy(a).cuda() for a in req)
-            ev[1].record()
-            spec = stft(audio.reshape(-1, SAMPLES_PER_SECOND))
-            ev[2].record()
-            spec = resize_frames(spec)[..., None]
-            ev[3].record()
-            for i, (model, x) in enumerate(((task.acoustic, ac[::12]), (task.audio, spec), (task.video, video[::12]))):
-                model.vae(model.features(x))
-                ev[4 + i].record()
-            torch.cuda.synchronize()
-    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        one_pass(timed)
+        one_pass(timed)  # the one reported
+        parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        host_ms = {n: (host[i + 1] - host[i]) * 1e3 for i, n in enumerate(names)}
     log("stages of one embedding request (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-        + f", total {ev[0].elapsed_time(ev[-1]):.3f}")
+        + f", total {ev[0].elapsed_time(ev[-1]):.3f}; host ms to each stage's end: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items()))
     return parts
 
 
@@ -1579,33 +1710,43 @@ def check_embed_train_against_cpu() -> None:
         raise AssertionError("CUDA and CPU embedding train steps differ")
 
 
-def trunk_gemms(package_root) -> int:
-    """``--trunk-gemms``: build ``matmul_stats`` and ``qgemm_s8`` from the
-    checkout at ``package_root`` (default: this one), hold each against its
-    plain version and time it at the trunk's shapes, as the full run does.
-    Prints no result line: this is a measurement, not the smoke run."""
+def kernels_only(group: str, package_root) -> int:
+    """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
+    (``mfcc``, ``stft``): build the group's
+    kernels from the checkout at ``package_root`` (default: this one), hold
+    each against its plain version and time it at its path's shapes, as the
+    full run does. Prints no result line: this is a measurement, not the
+    smoke run."""
     if package_root is not None:
         sys.path.insert(0, package_root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from acoustic_image_generation_tpu_torch.ops import build
-    from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
-    from acoustic_image_generation_tpu_torch.ops import qgemm as qg
 
-    log(f"trunk GEMMs of {build.CSRC.parent}: device {torch.cuda.get_device_name(0)}, seed {SEED}")
-    report = build.build(("matmul_stats", "qgemm_s8"))
+    names = {"trunk_gemms": ("matmul_stats", "qgemm_s8"), "frontends": ("mfcc", "stft")}[group]
+    log(f"{group} of {build.CSRC.parent}: device {torch.cuda.get_device_name(0)}, seed {SEED}")
+    report = build.build(names)
     for name, (secs, text) in report.items():
         log(f"build {name}: {secs:.2f} s")
         for line in text.splitlines():
             if re.search(r"entry function|registers|spill|warning|error", line):
                 log(f"  {line.strip()}")
 
-    class Task:
-        dtype = torch.bfloat16
-
     with torch.no_grad():
-        entries = [check_matmul_stats(cs, Task), check_qgemm(qg)]
-    log(json.dumps({"trunk_gemms": entries}))
+        if group == "frontends":
+            from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
+            from acoustic_image_generation_tpu_torch.ops import stft as st
+
+            entries = [check_mfcc(mk), check_stft(st)]
+        else:
+            from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
+            from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+
+            class Task:
+                dtype = torch.bfloat16
+
+            entries = [check_matmul_stats(cs, Task), check_qgemm(qg)]
+    log(json.dumps({group: entries}))
     return 0
 
 
@@ -1613,17 +1754,21 @@ def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=SEED, help="seed of the weights and the data")
-    parser.add_argument("--trunk-gemms", action="store_true",
-                        help="only build, check and time the trunk's GEMM kernels (matmul_stats, qgemm_s8)")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--trunk-gemms", action="store_const", const="trunk_gemms", dest="only",
+                      help="only build, check and time the trunk's GEMM kernels (matmul_stats, qgemm_s8)")
+    only.add_argument("--frontends", action="store_const", const="frontends", dest="only",
+                      help="only build, check and time the frontends' FFT kernels (mfcc, stft)")
     parser.add_argument("--package-root", default=None,
-                        help="with --trunk-gemms: import the port from this checkout (e.g. a parent commit's)")
+                        help="with --trunk-gemms or --frontends: import the port from this checkout "
+                             "(e.g. a parent commit's)")
     args = parser.parse_args()
     SEED = args.seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.trunk_gemms:
-        return trunk_gemms(args.package_root)
+    if args.only:
+        return kernels_only(args.only, args.package_root)
     # IEEE f32 wherever f32 is compared: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1746,7 +1891,9 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: item[k] for k in keys} for item in kernels]}))
+    extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us")  # mfcc, stft: entry_times
+    log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
+                                for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

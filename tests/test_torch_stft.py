@@ -9,6 +9,11 @@ same. The resize is one bilinear interpolation on both sides: 1e-6
 relative to the values (3.8e-6 on magnitudes up to 50 when first read).
 The ``torch.stft`` yardstick in f64 agrees with the oracle within 1e-6 of
 the peak (the oracle rounds its output to f32).
+
+The CUDA kernel runs only on a card; its FFT schedule (``dsp.fft``) is
+modelled in numpy on the kernel's own tables (``fft_model.stockham``, also
+used by ``test_torch_mfcc.py``): against numpy's FFT in float64 to 1e-12 of
+the peak, and as a whole kernel against the oracle and the plain version.
 """
 
 import jax
@@ -20,8 +25,10 @@ import torch.nn.functional as F
 
 from acoustic_image_generation_tpu.dsp import spectrogram as jspec
 from acoustic_image_generation_tpu.ops.pallas_stft import stft_pallas
+from acoustic_image_generation_tpu_torch.dsp import fft
 from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
 from acoustic_image_generation_tpu_torch.ops import stft as stft_mod
+from fft_model import complex_table, real_split, stockham
 
 PEAK_TOL = 1e-5  # max abs error over the peak magnitude
 
@@ -108,3 +115,76 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_and_checks_its_input():
         stft_mod.stft(x[:, :1024].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         stft_mod.stft(torch.stack([x, x], dim=-1)[..., 0])
+
+
+GROUP, SPAN = 9, 1224  # csrc/stft.cu: frames a block, floats of a block's sample span
+
+
+def stft_model(x, tables):
+    """``csrc/stft.cu`` on (S, 12288) audio, in float64: per block of
+    GROUP frames the span from the 16-byte boundary below its first frame,
+    each frame's windowed (even, odd) pairs zero-padded to 256 points, the
+    passes, the split, the magnitude; rounded once to float32."""
+    tw, split_a, split_b = (complex_table(tables[k]) for k in ("twiddles", "split_a", "split_b"))
+    window = tables["window"]
+    x = x.astype(np.float64)
+    out = np.empty((x.shape[0], spec.NUM_FRAMES, spec.NUM_BINS))
+    for f0 in range(0, spec.NUM_FRAMES, GROUP):
+        s0 = (f0 * spec.FRAME_STEP) & ~3
+        assert s0 + SPAN <= spec.SAMPLES_PER_SECOND
+        span = x[:, s0:s0 + SPAN]
+        for f in range(f0, f0 + GROUP):
+            frame = span[:, f * spec.FRAME_STEP - s0:][:, :spec.FRAME_LENGTH] * window
+            assert frame.shape[1] == spec.FRAME_LENGTH
+            z = np.zeros((x.shape[0], spec.FFT_LENGTH // 2), complex)
+            z[:, :spec.FRAME_LENGTH // 2] = frame[:, 0::2] + 1j * frame[:, 1::2]
+            X = real_split(stockham(z, fft.STFT_RADICES, tw), split_a, split_b)
+            out[:, f] = np.sqrt(X.real * X.real + X.imag * X.imag)
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("n, radices", [(256, fft.STFT_RADICES), (512, fft.MFCC_RADICES)], ids=["stft", "mfcc"])
+def test_fft_schedule_matches_numpy_fft_in_float64(n, radices):
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((5, n)) + 1j * rng.standard_normal((5, n))
+    want = np.fft.fft(z, axis=-1)
+    got = stockham(z, radices, fft.twiddles(n))
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_real_split_matches_numpy_rfft_in_float64(n):
+    rng = np.random.default_rng(8)
+    x = rng.integers(-(2**15), 2**15, (4, n)).astype(np.float64)
+    radices = fft.STFT_RADICES if n == 512 else fft.MFCC_RADICES
+    z = stockham(x[:, 0::2] + 1j * x[:, 1::2], radices, fft.twiddles(n // 2))
+    got = real_split(z, *fft.real_split(n))
+    want = np.fft.rfft(x, axis=-1)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_kernel_tables():
+    t = stft_mod.kernel_tables()
+    assert list(t) == ["twiddles", "split_a", "split_b", "window"]  # the kernel's argument order
+    assert {k: a.shape for k, a in t.items()} == {
+        "twiddles": (256, 2), "split_a": (257, 2), "split_b": (257, 2), "window": (246,)}
+    assert all(a.dtype == np.float64 and a.flags.c_contiguous for a in t.values())
+    np.testing.assert_array_equal(t["window"], spec.hann_periodic())
+    np.testing.assert_array_equal(complex_table(t["twiddles"]), fft.twiddles(256))
+
+
+def test_kernel_model_matches_oracles():
+    """The kernel's schedule on its tables: within the float32 rounding of
+    its output (half an ulp of the peak) of the float64 rfft, and within
+    PEAK_TOL of the numpy oracle and of the plain version."""
+    x = _audio(9, 2)
+    tables = stft_mod.kernel_tables()
+    got = stft_model(x, tables)
+    frames = np.lib.stride_tricks.sliding_window_view(x.astype(np.float64), spec.FRAME_LENGTH, axis=-1)
+    exact = np.abs(np.fft.rfft(frames[:, ::spec.FRAME_STEP] * spec.hann_periodic(), spec.FFT_LENGTH, axis=-1))
+    assert got.shape == exact.shape == (2, 99, 257)
+    # float32 output rounding: half an ulp of each magnitude
+    assert np.abs(got - exact).max() <= 2**-24 * np.abs(exact).max() * (1 + 1e-9)
+    assert _peak_err(got, spec.stft_magnitude_numpy_oracle(x.astype(np.float64))) < PEAK_TOL
+    assert _peak_err(got, spec.stft_magnitude(torch.from_numpy(x)).numpy()) < PEAK_TOL
