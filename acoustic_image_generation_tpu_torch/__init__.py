@@ -8,10 +8,13 @@ Subpackages mirror the JAX names:
 
 dsp       MFCC frontend (plain torch) and the inverse energy map
 ops       hand-written CUDA kernels (``csrc/``), their builder and wrappers
-data      device preprocessing of raw audio/video frames
+data      TFRecord shards -> decoded batches (the loader, its C++ decoder
+          through ctypes, a synthetic shard writer) and device
+          preprocessing of raw audio/video frames
 models    ResNet50 trunk (eval and train mode) and the UNetAcResNet generator
 losses    reconstruction, KL and L2 terms
-train     ``GenerationTask``, TF1 Adam and the generation train step
+train     ``GenerationTask``, TF1 Adam, the train step and evaluation,
+          and the frozen-trunk feature cache
 
 Device policy: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``. With no GPU and no explicit device they raise; they never

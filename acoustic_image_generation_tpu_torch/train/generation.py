@@ -69,7 +69,8 @@ class GenerationConfig:
     ``model.trunk_bn``, ``model.trunk_quant``, ``model.fused_qgemm``,
     ``data.correspondence``, ``parallel.compute_dtype``, ``optim.learning_rate``,
     ``optim.latent_loss``, ``optim.mse``, ``optim.huber``, ``optim.bce``,
-    ``optim.resnet_weight_decay`` and ``run.seed``, with JAX's defaults
+    ``optim.resnet_weight_decay``, ``run.seed`` and the feature cache's
+    ``model.cache_*`` fields, with JAX's defaults
     (bfloat16 is the CLI's default compute dtype). float32 work runs
     without TF32, so float32 is IEEE float32 on CUDA too."""
 
@@ -88,6 +89,14 @@ class GenerationConfig:
     bce: bool = False
     resnet_weight_decay: float = 5e-4
     seed: int = 0
+    # the frozen-trunk feature cache (train/feature_cache.py); on only with
+    # trunk_bn="frozen" and no correspondence augmentation
+    cache_trunk_features: bool = False
+    cache_device_bytes: int = 4 << 30  # the device pool's budget; 0: no pool
+    cache_eval_bytes: int = 8 << 30  # each eval loader's host cache; 0: none
+    cache_disk_dir: str | None = None  # the cross-run disk tier's root
+    cache_disk_bytes: int = 256 << 30  # byte cap of one disk store
+    cache_features_dtype: str = "bf16"  # bf16: what the trunk produces | f8_e4m3
 
 
 class GenerationTask(nn.Module):
@@ -158,6 +167,13 @@ class GenerationTask(nn.Module):
         with no_tf32():
             return self.resnet(video, mode="trunk")
 
+    def trunk_state(self) -> dict[str, torch.Tensor]:
+        """Everything ``trunk_features`` depends on without an int8 trunk:
+        the frozen backbone's parameters and BN statistics, without the
+        trained heads. The disk feature tier fingerprints it."""
+        return {name: t for name, t in [*self.resnet.named_parameters(), *self.resnet.named_buffers()]
+                if name.split(".")[0] not in TRAINED_RESNET_HEADS}
+
     def build_qtrunk(self, video: torch.Tensor) -> QuantTrunk:
         """Fold, quantize and calibrate the int8 trunk from the ResNet's
         current (frozen) weights, on ``video``: normalized frames
@@ -219,12 +235,14 @@ class GenerationTask(nn.Module):
                             trunk_feat=trunk_feat, qtrunk=qtrunk)
         return self.objective(out, batch)
 
-    def eval_losses(self, batch: Batch, *, eps=None, generator=None, qtrunk=None):
+    def eval_losses(self, batch: Batch, *, eps=None, generator=None, qtrunk=None, trunk_feat=None):
         """Per-frame eval losses, eval-mode forward: ``({"mse": (N,),
         "mse0".."mse3": (N,)}, recon (N,36,48,12) f32)``, the MSE over each
-        frame and over each group of three channels (JAX's ``eval_losses``)."""
+        frame and over each group of three channels (JAX's ``eval_losses``).
+        ``trunk_feat`` (cached trunk features) bypasses the trunk."""
         with no_tf32():
-            out = self._forward(batch.mfcc, batch.video, eps=eps, generator=generator, qtrunk=qtrunk)
+            out = self._forward(batch.mfcc, batch.video, eps=eps, generator=generator, qtrunk=qtrunk,
+                                trunk_feat=trunk_feat)
         recon = out.output.float()
         err = torch.square(recon - batch.acoustic)
         losses = {"mse": err.mean(dim=(1, 2, 3))}

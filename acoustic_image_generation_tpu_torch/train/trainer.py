@@ -1,37 +1,61 @@
-"""The train step, for the generation task or the embedding task.
+"""The train step, for the generation task or the embedding task, and the
+generation task's evaluation.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
-(``__init__``, ``init_state``, ``_prepare``, ``_step_core``,
-``_eval_step_impl`` and ``_maybe_build_qtrunk``): raw clips -> device
-preprocessing -> train-mode forward and loss -> backward -> TF1 Adam on the
-trainable parameters. JAX runs it as one jitted program; here it runs
-eagerly on the task's device and updates the state in place, the BN
-running averages of train-mode BNs included. A task whose ``reads_mfcc``
-is false (``EmbedTask``) gets batches without the MFCC frontend (JAX's jit
-drops it as dead code); ``eval_step`` is the generation task's only.
+(``__init__``, ``init_state``, ``_prepare``, ``_step_core``, the cached
+step variants, ``_eval_step_impl``, ``evaluate`` and
+``_maybe_build_qtrunk``): raw clips -> device preprocessing -> train-mode
+forward and loss -> backward -> TF1 Adam on the trainable parameters. JAX
+runs it as one jitted program; here it runs eagerly on the task's device and
+updates the state in place, the BN running averages of train-mode BNs
+included. A task whose ``reads_mfcc`` is false (``EmbedTask``) gets batches
+without the MFCC frontend (JAX's jit drops it as dead code); ``eval_step``
+and ``evaluate`` are the generation task's only.
+
+A batch is a ``data.pipeline.RawBatch`` or a dict of its arrays
+(``acoustic``, ``audio``, ``video``, optionally ``action``, ``location``,
+``valid`` and ``window_ids``).
 
 With ``trunk_quant="int8"`` the trainer folds, quantizes and calibrates the
 trunk once, from the normalized frames of the first batch it sees (train
 or eval), and every later step runs the int8 trunk (``Trainer.qtrunk``).
 
+With ``cache_trunk_features=True``, ``trunk_bn="frozen"`` and batches that
+carry ``window_ids``, a step takes the trunk's features from the first tier
+that holds all of them (``train/feature_cache.py``): the device pool; the
+pool plus host rows (the mixed tier); the host tier, backed by the disk
+tier; else it runs the trunk once and stores the features (the fill). The
+step then runs ``conv_map``, the generator forward and backward and TF1
+Adam on them: the cached step. ``trunk_runs`` counts the trunk forwards the
+trainer ran, ``last_tier`` names the tier of the last cached step.
+
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
 ``(seed, s)`` (``step_generator``), the counterpart of
-``core/rng.py::train_step_rngs``. The two frameworks draw different numbers
-from the same seed, so tests inject the noise instead (``eps``,
-``moddrop``).
+``core/rng.py::train_step_rngs``; ``evaluate``'s batch ``i`` draws from
+``eval_generator`` seeded from ``(seed, "latent", i)``, the counterpart of
+``fold_in(role_key(base_key, "latent"), i)``. The two frameworks draw
+different numbers from the same seed, so tests inject the noise instead
+(``eps``, ``moddrop``).
 """
 
 from __future__ import annotations
+
+import hashlib
+import weakref
 
 import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
+from acoustic_image_generation_tpu_torch.train import feature_cache as fc
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
 from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from acoustic_image_generation_tpu_torch.train.state import TrainState
+
+RAW_KEYS = ("acoustic", "audio", "video", "action", "location", "valid", "window_ids")
+_LATENT = int.from_bytes(b"latent", "little")
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -40,12 +64,47 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def eval_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of ``evaluate``'s batch ``index``, seeded from
+    ``(seed, "latent", index)``."""
+    s = int(np.random.SeedSequence([seed, _LATENT, index]).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def as_raw(batch) -> dict:
+    """A ``RawBatch`` or a dict -> the dict of its arrays the steps read."""
+    if isinstance(batch, dict):
+        return batch
+    return {k: getattr(batch, k) for k in RAW_KEYS if getattr(batch, k, None) is not None}
+
+
+def _as_tensor(a):
+    return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else torch.as_tensor(a)
+
+
 class Trainer:
     def __init__(self, task: GenerationTask | EmbedTask):
         self.task = task
-        self.cfg = task.cfg
+        self.cfg = cfg = task.cfg
         self.device = task.device
         self.qtrunk = None  # the int8 trunk of a generation task, built from the first batch
+        self.trunk_runs = 0  # trunk forwards run by the steps and evaluations
+        self.last_tier = None  # device | mixed | host | fill: the last cached step's source
+        self.feature_cache = None
+        self.device_cache = None
+        self._feat_store_dtype = None
+        if (getattr(cfg, "cache_trunk_features", False) and isinstance(task, GenerationTask)
+                and cfg.trunk_bn == "frozen" and not cfg.correspondence):
+            if cfg.cache_features_dtype not in ("bf16", "f8_e4m3"):
+                raise ValueError(f"cache_features_dtype must be 'bf16' or 'f8_e4m3', got "
+                                 f"{cfg.cache_features_dtype!r}")
+            # None: store what the trunk produces (its compute dtype), exact
+            self._feat_store_dtype = torch.float8_e4m3fn if cfg.cache_features_dtype == "f8_e4m3" else None
+            self.feature_cache = fc.TrunkFeatureCache()
+            # window ids are loader-local: one host cache per eval loader
+            self._eval_caches = weakref.WeakKeyDictionary()
+            if cfg.cache_device_bytes > 0:
+                self.device_cache = fc.DeviceFeatureCache(cfg.cache_device_bytes)
 
     def init_state(self) -> TrainState:
         """Step 0 and TF1 Adam over the task's trainable parameters (those
@@ -61,24 +120,30 @@ class Trainer:
         (B,F,224,298,3) uint8 BGR, and optionally ``action`` and
         ``location`` (B,) int, repeated per frame; as numpy arrays or
         tensors."""
-        as_tensor = lambda a: torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
         flat = {}
         for key in ("acoustic", "audio", "video"):
-            t = as_tensor(raw[key])
+            t = _as_tensor(raw[key])
             flat[key] = t.reshape(-1, *t.shape[2:]).to(self.device, non_blocking=True)
         frames = flat["audio"].shape[0] // raw["audio"].shape[0]
         for key in ("action", "location"):
             if key in raw:
-                flat[key] = torch.as_tensor(as_tensor(raw[key])).repeat_interleave(frames).to(self.device)
+                flat[key] = _as_tensor(raw[key]).repeat_interleave(frames).to(self.device)
         return preprocess_batch(flat["audio"], flat["video"], flat["acoustic"], flat.get("action"),
                                 flat.get("location"), compute_mfcc=self.task.reads_mfcc)
+
+    def _cached_raw(self, raw: dict) -> dict:
+        """The batch for a step on cached features: the trunk does not run,
+        so a (B, F, 1, 1, 3) dummy replaces the video (JAX's ``_cached_raw``;
+        bytes instead of the 154 MB upload)."""
+        n, f = raw["video"].shape[:2]
+        return dict(raw, video=torch.zeros((n, f, 1, 1, 3), dtype=torch.uint8))
 
     def _maybe_build_qtrunk(self, raw: dict) -> None:
         """With ``trunk_quant="int8"``, once: fold, quantize and calibrate the
         frozen trunk on the normalized frames of ``raw``."""
         if getattr(self.cfg, "trunk_quant", "none") != "int8" or self.qtrunk is not None:
             return
-        video = torch.as_tensor(raw["video"])
+        video = _as_tensor(raw["video"])
         video = video.reshape(-1, *video.shape[2:]).to(self.device)
         self.qtrunk = self.task.build_qtrunk(normalize_video(video))
 
@@ -89,26 +154,145 @@ class Trainer:
             return None, step_generator(self.cfg.seed, step, self.device)
         return torch.as_tensor(np.array(eps, np.float32), device=self.device), None
 
-    def train_step(self, state: TrainState, raw: dict, *, eps=None, moddrop=None) -> tuple[TrainState, dict]:
+    def train_step(self, state: TrainState, raw, *, eps=None, moddrop=None) -> tuple[TrainState, dict]:
         """One step: prepare, loss and grads, TF1 Adam, BN statistics
-        updated. ``eps`` replaces the step's noise: (frames, 150) for the
-        generation task, (seconds, latent_dim) for the embedding task, whose
+        updated. ``raw``: a ``RawBatch`` or a dict; with the feature cache on
+        and ``window_ids`` given, the step runs on cached trunk features.
+        ``eps`` replaces the step's noise: (frames, 150) for the generation
+        task, (seconds, latent_dim) for the embedding task, whose
         ``moddrop`` (keep flags of video, audio, acoustic) replaces the
         moddrop draws. Returns the state (updated in place, step advanced)
         and the loss terms as detached f32 scalars."""
+        raw = as_raw(raw)
         self._maybe_build_qtrunk(raw)
+        if self.feature_cache is not None and raw.get("window_ids") is not None:
+            return self._step_core(state, self._cached_raw(raw), eps=eps,
+                                   trunk_feat=self._train_features(raw))
+        if isinstance(self.task, GenerationTask):
+            self.trunk_runs += 1
+        return self._step_core(state, raw, eps=eps, moddrop=moddrop)
+
+    def _step_core(self, state, raw: dict, *, eps=None, moddrop=None, trunk_feat=None):
+        """Shared body of the full and cached steps; ``trunk_feat`` (cached
+        features, in the storage dtype) bypasses the trunk."""
         eps, generator = self._noise(state.step, eps)
         with no_tf32():
             batch = self._prepare(raw)
+            kw = {}
+            if trunk_feat is not None:
+                kw["trunk_feat"] = trunk_feat.to(self.task.dtype)  # f8 storage back to the compute dtype
             total, metrics = self.task.loss(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
-                                            moddrop=moddrop)
+                                            moddrop=moddrop, **kw)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    def eval_step(self, state: TrainState, raw: dict, *, eps=None) -> tuple[dict, torch.Tensor]:
+    def _trunk_features(self, raw: dict) -> torch.Tensor:
+        """(B, F, 224, 298, 3) uint8 -> (B*F, 14, 19, 2048) frozen-trunk
+        features on the device, rounded to the storage dtype: the one point
+        where every tier's rows are produced."""
+        video = _as_tensor(raw["video"])
+        video = video.reshape(-1, *video.shape[2:]).to(self.device, non_blocking=True)
+        with torch.no_grad():
+            feat = self.task.trunk_features(normalize_video(video), self.qtrunk)
+        self.trunk_runs += 1
+        if self._feat_store_dtype is not None:
+            feat = fc.to_float8_e4m3fn(feat)
+        return feat
+
+    def _train_features(self, raw: dict) -> torch.Tensor:
+        """The batch's trunk features from the first tier that holds all of
+        them, or from one trunk run (then stored: into the device pool while
+        it has room, the host tier after)."""
+        ids = [int(w) for w in raw["window_ids"]]
+        valid = int(raw.get("valid", len(ids)))
+        pool = self.device_cache
+        if pool is not None:
+            res = pool.lookup_partial(ids, valid)
+            if res is not None:
+                slots, missing = res
+                if not missing:
+                    self.last_tier = "device"
+                    return pool.gather(slots)
+                host_rows = []
+                for _, wid in missing:
+                    f = self.feature_cache.get(wid)
+                    if f is None:
+                        host_rows = None
+                        break
+                    host_rows.append(f)
+                if host_rows is not None:
+                    # only the missing rows cross PCIe, scattered in exactly
+                    # (JAX pads their count to a power of two for its jit)
+                    self.last_tier = "mixed"
+                    stacked = torch.stack([fc.as_bytes(r) for r in host_rows]).view(host_rows[0].dtype)
+                    return pool.gather(slots, rows=([i for i, _ in missing], stacked))
+        feat = fc.gather_batch(self.feature_cache, ids, valid)
+        if feat is not None:
+            self.last_tier = "host"
+            return feat.to(self.device, non_blocking=True)
+        self.last_tier = "fill"
+        feat = self._trunk_features(raw)
+        frames = raw["video"].shape[1]
+        if pool is not None:
+            pool.put_batch(ids, valid, feat, frames)
+        self._persist_host_rows(self.feature_cache, ids, valid, frames, feat,
+                                skip=pool.slots if pool is not None else ())
+        return feat
+
+    def _persist_host_rows(self, cache, ids, valid: int, frames: int, feat, skip=()) -> None:
+        """Store a freshly computed batch of features into a host-tier
+        cache, one contiguous row per window; ``skip`` holds the ids resident
+        in the device pool, which go to the disk tier only. One copy from
+        the device per batch, and a clone per row (a view would pin the
+        whole batch). Stops at the cache's byte budget."""
+        host = None
+        for i in range(valid):
+            wid = ids[i]
+            ram = wid not in skip
+            if (not ram or wid in cache) and (cache.disk is None or wid in cache.disk):
+                continue
+            if host is None:
+                host = feat.cpu()
+            if not cache.put(wid, host[i * frames:(i + 1) * frames].clone(), ram=ram):
+                break
+
+    def attach_disk(self, loader) -> None:
+        """Attach the cross-run disk tier (``cache_disk_dir``) to the
+        training cache, as JAX's ``fit`` does before its first epoch; with
+        the int8 trunk, calibrate it first on the loader's first batch (its
+        scales are part of the features' identity)."""
+        if not getattr(self.cfg, "cache_disk_dir", None) or self.feature_cache is None:
+            return
+        if self.qtrunk is None and self.cfg.trunk_quant == "int8":
+            batches = loader.batches(0)
+            first = next(batches, None)
+            batches.close()
+            if first is not None:
+                self._maybe_build_qtrunk(as_raw(first))
+        self._attach_disk(loader, self.feature_cache)
+
+    def _attach_disk(self, loader, cache) -> None:
+        """Attach a disk store to a host cache, keyed by a digest of the
+        features' producer (the frozen backbone, or the calibrated int8
+        trunk), the loader's window table and the storage dtype. Idempotent;
+        does nothing until the int8 trunk is calibrated."""
+        root = getattr(self.cfg, "cache_disk_dir", None)
+        if not root or cache is None or cache.disk is not None:
+            return
+        if self.cfg.trunk_quant == "int8" and self.qtrunk is None:
+            return
+        if self.qtrunk is not None:
+            producer = fc.tree_fingerprint(dict(self.qtrunk.named_buffers()))
+        else:
+            producer = fc.tree_fingerprint(self.task.trunk_state())
+        key = producer + fc.windows_fingerprint(loader) + self.cfg.cache_features_dtype
+        fp = hashlib.blake2b(key.encode(), digest_size=20).hexdigest()
+        cache.attach_disk(fc.DiskFeatureStore(root, fp, max_bytes=self.cfg.cache_disk_bytes))
+
+    def eval_step(self, state: TrainState, raw, *, eps=None) -> tuple[dict, torch.Tensor]:
         """Eval of one batch through the trunk the steps use: the per-frame
         losses of ``GenerationTask.eval_losses`` summed over the frames of
         the first ``raw["valid"]`` clips (all clips when absent; a padded
@@ -117,14 +301,74 @@ class Trainer:
         embedding task's eval step is not ported."""
         if isinstance(self.task, EmbedTask):
             raise NotImplementedError("Trainer.eval_step is not ported for the embedding task")
+        raw = as_raw(raw)
         self._maybe_build_qtrunk(raw)
         eps, generator = self._noise(state.step, eps)
+        self.trunk_runs += 1
+        return self._eval_sums(raw, eps, generator)
+
+    def _eval_sums(self, raw: dict, eps, generator, trunk_feat=None) -> tuple[dict, torch.Tensor]:
+        """The masked per-frame loss sums of one eval batch. Padded rows are
+        selected out, not multiplied by 0: their zero acoustic frames
+        normalize to NaN (JAX's jitted mask multiply comes out the same)."""
         with torch.no_grad():
             batch = self._prepare(raw)
-            losses, _ = self.task.eval_losses(batch, eps=eps, generator=generator, qtrunk=self.qtrunk)
-        n_total = batch.video.shape[0]
-        clips = raw["video"].shape[0]
-        valid = raw.get("valid", clips)
-        per_clip = n_total // clips
-        mask = (torch.arange(n_total, device=self.device) < valid * per_clip).float()
-        return {k: torch.sum(v * mask) for k, v in losses.items()}, torch.sum(mask)
+            if trunk_feat is not None:
+                trunk_feat = trunk_feat.to(self.task.dtype)
+            losses, _ = self.task.eval_losses(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
+                                              trunk_feat=trunk_feat)
+        n_total = batch.audio.shape[0]
+        clips = raw["audio"].shape[0]
+        valid = int(raw.get("valid", clips))
+        keep = torch.arange(n_total, device=self.device) < valid * (n_total // clips)
+        sums = {k: torch.sum(torch.where(keep, v, 0.0)) for k, v in losses.items()}
+        return sums, torch.sum(keep.float())
+
+    def _eval_features(self, raw: dict, cache) -> torch.Tensor:
+        """An eval batch's trunk features: from the loader's host cache, or
+        one trunk run, then stored there (the device pool is kept for
+        training windows)."""
+        ids = [int(w) for w in raw["window_ids"]]
+        valid = int(raw.get("valid", len(ids)))
+        feat = fc.gather_batch(cache, ids, valid)
+        if feat is not None:
+            return feat.to(self.device, non_blocking=True)
+        feat = self._trunk_features(raw)
+        self._persist_host_rows(cache, ids, valid, raw["video"].shape[1], feat)
+        return feat
+
+    def evaluate(self, state: TrainState, loader, epoch: int = 0, *, use_cache: bool = True) -> dict:
+        """Size-weighted mean eval losses over one pass of ``loader``: each
+        loss summed over the valid frames of every batch, divided by their
+        count. With the feature cache on, each eval loader gets its own host
+        cache (budget ``cache_eval_bytes``), so repeated evaluations run the
+        trunk once; ``use_cache=False`` skips it (a one-shot evaluation). The
+        sums stay on the device until the end."""
+        if isinstance(self.task, EmbedTask):
+            raise NotImplementedError("Trainer.evaluate is not ported for the embedding task")
+        sums: dict = {}
+        count = None
+        cache = None
+        if use_cache and self.cfg.cache_eval_bytes > 0 and self.feature_cache is not None:
+            cache = self._eval_caches.get(loader)
+            if cache is None:
+                cache = self._eval_caches[loader] = fc.TrunkFeatureCache(self.cfg.cache_eval_bytes)
+        for i, raw_batch in enumerate(loader.batches(epoch)):
+            raw = as_raw(raw_batch)
+            self._maybe_build_qtrunk(raw)
+            if i == 0 and cache is not None:
+                self._attach_disk(loader, cache)
+            generator = eval_generator(self.cfg.seed, i, self.device)
+            if cache is not None and raw.get("window_ids") is not None:
+                feat = self._eval_features(raw, cache)
+                batch_sums, n = self._eval_sums(self._cached_raw(raw), None, generator, trunk_feat=feat)
+            else:
+                self.trunk_runs += 1
+                batch_sums, n = self._eval_sums(raw, None, generator)
+            for k, v in batch_sums.items():
+                sums[k] = v if k not in sums else sums[k] + v
+            count = n if count is None else count + n
+        if count is None:
+            return {}
+        count = max(float(count), 1.0)
+        return {k: float(v) / count for k, v in sums.items()}

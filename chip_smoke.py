@@ -3,14 +3,15 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --trunk-gemms [--package-root DIR]
     python3 chip_smoke.py --frontends [--package-root DIR]
+    python3 chip_smoke.py --cached
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
-(``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
-imports nothing of JAX. ``--trunk-gemms`` runs only phase 2's checks and
-times of ``matmul_stats`` and ``qgemm_s8``, ``--frontends`` those of
-``mfcc`` and ``stft`` (of the checkout at ``DIR``, such as a parent
-commit's, with ``--package-root``); neither prints a result line. Phases, each fatal on
-failure:
+(``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
+PyTorch built for CUDA. It imports nothing of JAX. ``--trunk-gemms`` runs
+only phase 2's checks and times of ``matmul_stats`` and ``qgemm_s8``,
+``--frontends`` those of ``mfcc`` and ``stft`` (of the checkout at ``DIR``,
+such as a parent commit's, with ``--package-root``), ``--cached`` phase 10
+alone; none prints a result line. Phases, each fatal on failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
@@ -58,7 +59,21 @@ failure:
    five full-width bf16 train steps of 32 clips x 12 frames (the JAX
    bench's embed batch) with launch counts, a stage breakdown and one
    profiled step, then two f32 steps on CUDA against the CPU;
-10. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+10. cached-feature training from TFRecord shards: write 128 one-second
+   synthetic shards under ``build/chip_smoke/``, decode them with the
+   native loader (``use_native=True``), train the full-width bf16 frozen
+   trunk with ``cache_trunk_features=True`` for three epochs of two
+   64-clip batches (epoch 1 fills the device pool with 96 windows and the
+   host tier with 32; epochs 2-3 run a device-tier and a mixed-tier step
+   each), with the launch counts reset just before and read just after:
+   the trunk runs 2, 0, 0 times, each step launches ``mfcc`` once,
+   ``conv_chain`` 12 and its backward 29 times; the cached and the full
+   frozen-trunk step agree; the host tier alone; f8 storage; the cache
+   filled from the int8 trunk (36 ``qgemm_s8`` a fill batch, none after);
+   a fresh trainer served from the disk tier without a trunk run; and
+   ``Trainer.evaluate`` twice (the second pass from its cache) and
+   uncached, with equal losses;
+11. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
@@ -68,6 +83,7 @@ f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import statistics
@@ -1710,6 +1726,328 @@ def check_embed_train_against_cpu() -> None:
         raise AssertionError("CUDA and CPU embedding train steps differ")
 
 
+# ----------------------------------------------------------------------------------------------
+# Phase 10: cached-feature training from TFRecord shards (train/feature_cache.py, data/)
+
+CACHE_DATA = dict(num_classes=8, videos_per_class=4, seconds_per_video=4)  # 128 one-second windows
+CACHE_CLIPS = 64  # the JAX bench's cached-step batch
+CACHE_EPOCHS = 3
+WINDOW_BYTES = 12 * 14 * 19 * 2048 * 2  # one window's bf16 trunk features
+CACHE_POOL = 96 * WINDOW_BYTES  # the device pool: 96 of the 128 windows
+# The cached step against the full frozen-trunk step, bf16, from the same
+# weights, batch and noise (the step's generator): the features are the
+# same bits either way and the forward runs the same kernels, so the losses
+# agree to the bit (read 0 on an H100); the trained tensors' updates differ
+# where the conv_chain weight grad's f32 atomics sum in another order, which
+# Adam turns into at most a +-lr step on entries whose gradient is at
+# rounding-noise level. Limits: loss 1e-6 relative; every entry within 2 lr
+# (read 0.003 lr); each tensor's update within 1e-2 in L2 (read 1.5e-6
+# after the fill step, 9.3e-4 after the device-tier step).
+CACHED_LOSS_TOL = 1e-6
+CACHED_UPDATE_TOL = 1e-2
+# f8 storage against exact storage, the first step's loss and its MSE term,
+# relative: JAX's test's envelope for the loss. The L2 term dominates the
+# loss, so the MSE term, which alone sees the features, is held too.
+F8_LOSS_TOL = 0.05
+EVAL_TOL = 1e-6  # evaluate: second (cached) pass and uncached pass against the first, relative
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def timing_summary(name: str, times: list) -> dict:
+    """First and median of a tier's step times (host clock to the loss on
+    the host), with clips/s at the median."""
+    med = statistics.median(times)
+    log(f"cached training {name} ({card()}): {len(times)} steps, first {times[0]:.2f} ms, median {med:.2f} ms, "
+        f"{CACHE_CLIPS / med * 1e3:.1f} clips/s, all {[round(t, 2) for t in times]}")
+    return dict(first=times[0], median=med, steps=len(times))
+
+
+def cache_trainer(**config):
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    cfg = GenerationConfig(trunk_bn="frozen", seed=SEED, **config)
+    return Trainer(GenerationTask(cfg, device="cuda").init_params(SEED))
+
+
+def run_epochs(trainer, loader, epochs: int, label: str) -> dict:
+    """``epochs`` passes of ``loader`` through ``Trainer.train_step``: per
+    epoch the trunk runs, per tier the step times, and the losses."""
+    state = trainer.init_state()
+    runs, times, losses = [], {}, []
+    for epoch in range(epochs):
+        before = trainer.trunk_runs
+        for raw in loader.batches(epoch):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, raw)
+            losses.append(float(metrics["loss"]))  # synchronizes
+            times.setdefault(trainer.last_tier, []).append((time.perf_counter() - t0) * 1e3)
+            log(f"cached training {label} epoch {epoch + 1} step {state.step}: {trainer.last_tier} tier, "
+                f"{times[trainer.last_tier][-1]:.2f} ms, loss {losses[-1]:.6g}")
+        runs.append(trainer.trunk_runs - before)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"cached training {label}: losses {losses} not finite")
+    return dict(state=state, trunk_runs=runs, times=times, losses=losses)
+
+
+def check_cached_against_full(loader) -> None:
+    """Two steps on one batch: the cached trainer fills its pool on the
+    first (trunk, then the head on the stored features) and serves the
+    second from it; the full frozen-trunk trainer runs the trunk in both.
+    Same weights, noise (the step generators) and batch."""
+    raw = next(iter(loader.batches(0)))
+    cached = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL)
+    full = cache_trainer()
+    init = {n: p.detach().clone() for n, p in full.task.named_parameters() if p.requires_grad}
+    states = [cached.init_state(), full.init_state()]
+    lr = full.cfg.learning_rate
+    for step in range(2):
+        (states[0], m_c), (states[1], m_f) = cached.train_step(states[0], raw), full.train_step(states[1], raw)
+        l_c, l_f = float(m_c["loss"]), float(m_f["loss"])
+        worst_entry = worst_norm = 0.0
+        params_c = dict(cached.task.named_parameters())
+        for n, p in full.task.named_parameters():
+            if n not in init:
+                continue
+            d_full, d_cached = p.detach() - init[n], params_c[n].detach() - init[n]
+            gap = (d_cached - d_full).float()
+            worst_entry = max(worst_entry, float(gap.abs().max()) / lr)
+            worst_norm = max(worst_norm, float(gap.norm() / d_full.float().norm().clamp_min(1e-30)))
+        loss_err = abs(l_c - l_f) / abs(l_f)
+        log(f"check cached vs full step {step + 1} ({cached.last_tier} tier; trunk runs cached "
+            f"{cached.trunk_runs}, full {full.trunk_runs}): loss {l_c:.9g} vs {l_f:.9g}, relative error "
+            f"{loss_err:.2e} (tol {CACHED_LOSS_TOL}); worst update gap {worst_entry:.3f} lr (tol 2), worst tensor "
+            f"update gap {worst_norm:.3e} in L2 (tol {CACHED_UPDATE_TOL})")
+        if not (loss_err <= CACHED_LOSS_TOL and worst_entry <= 2 and worst_norm <= CACHED_UPDATE_TOL):
+            raise AssertionError("the cached step and the full frozen-trunk step differ")
+    if (cached.trunk_runs, cached.last_tier) != (1, "device"):
+        raise AssertionError(f"cached check: {cached.trunk_runs} trunk runs, last tier {cached.last_tier}")
+
+
+def estimate_trunk_statistics(task, video) -> None:
+    """Set each trunk BN's running statistics to the batch mean and
+    variance of its input on ``video`` (normalized frames), in forward
+    order, as a trained trunk's statistics normalize its activations. At
+    their initial values (mean 0, variance 1) the BNs pass a random
+    ResNet50's activations through unscaled, and they grow unit by unit."""
+    from acoustic_image_generation_tpu_torch.models.layers import BatchNorm
+
+    def hook(bn, args):
+        x = args[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 1, 2)))
+        bn.running_var.copy_(x.var(dim=(0, 1, 2), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(hook) for n, m in task.resnet.named_modules()
+             if isinstance(m, BatchNorm) and not n.startswith("conv_map")]
+    try:
+        with torch.no_grad():
+            task.trunk_features(video)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_f8_storage(loader) -> None:
+    """``cache_features_dtype="f8_e4m3"``. The cast on the card equals the
+    CPU's, on features of the repo's initial weights, which pass f8's range
+    (JAX's cast, which the port matches, makes those NaN, so f8 storage
+    needs a trunk whose features fit). Then, on a trunk with BN statistics
+    estimated from the batch: the pool holds float8_e4m3fn, the first step's
+    loss is within F8_LOSS_TOL of exact storage's from the same weights,
+    the second step is served from the pool."""
+    from acoustic_image_generation_tpu_torch.data.preprocess import normalize_video
+    from acoustic_image_generation_tpu_torch.train import feature_cache as fc
+
+    raw = next(iter(loader.batches(0)))
+    video = normalize_video(torch.as_tensor(raw.video[:8]).reshape(-1, 224, 298, 3).cuda())
+    exact = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL)
+    trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL // 2,
+                            cache_features_dtype="f8_e4m3")
+    with torch.no_grad():
+        feat = trainer.task.trunk_features(video)
+    got = fc.to_float8_e4m3fn(feat).view(torch.uint8).cpu()
+    want = fc.to_float8_e4m3fn(feat.cpu()).view(torch.uint8)
+    over = int((feat.abs() > fc.F8_OVERFLOW).sum())
+    log(f"check f8 cast, CUDA vs CPU on {feat.numel()} bf16 features of the initial weights (largest "
+        f"{float(feat.abs().max()):.4g}, {over} beyond {fc.F8_OVERFLOW}, NaN in f8): {int((got != want).sum())} "
+        "differ (tol 0)")
+    if not torch.equal(got, want):
+        raise AssertionError("the f8 cast on the card differs from the CPU's")
+    for t in (exact, trainer):
+        estimate_trunk_statistics(t.task, video)
+    with torch.no_grad():
+        feat = trainer.task.trunk_features(video)
+    _, m_exact = exact.train_step(exact.init_state(), raw)
+    state, m1 = trainer.train_step(trainer.init_state(), raw)
+    state, m2 = trainer.train_step(state, raw)
+    pool = trainer.device_cache
+    exact_loss = float(m_exact["loss"])
+    err = abs(float(m1["loss"]) - exact_loss) / abs(exact_loss)
+    err_mse = abs(float(m1["mse"]) - float(m_exact["mse"])) / abs(float(m_exact["mse"]))
+    log(f"check f8 storage (BN statistics from the batch, features largest {float(feat.abs().max()):.4g}): pool "
+        f"{pool.resident} windows of {pool.buf.dtype}, capacity {pool.buf.shape[0]} in {CACHE_POOL // 2 / 2**30:.3f} "
+        f"GiB; first loss {float(m1['loss']):.9g} vs exact {exact_loss:.9g}, relative {err:.2e}, MSE "
+        f"{float(m1['mse']):.9g} vs {float(m_exact['mse']):.9g}, relative {err_mse:.2e} (tol {F8_LOSS_TOL}); "
+        f"second step {trainer.last_tier} tier, loss {float(m2['loss']):.9g}, trunk runs "
+        f"{trainer.trunk_runs}")
+    if pool.buf.dtype != torch.float8_e4m3fn or not max(err, err_mse) <= F8_LOSS_TOL or trainer.last_tier != "device" \
+            or trainer.trunk_runs != 1 or not np.isfinite(float(m2["loss"])):
+        raise AssertionError("f8 feature storage failed its checks")
+
+
+def check_int8_fill(loader, qg, counters: dict) -> None:
+    """The cache filled from the int8 trunk: 36 ``qgemm_s8`` launches per
+    fill batch, none once the features are cached."""
+    trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL, trunk_quant="int8",
+                            fused_qgemm=True)
+    for fn in counters.values():
+        fn.launches = 0
+    out = run_epochs(trainer, loader, 2, "int8 fill")
+    fill_q = qg.qgemm_s8.launches
+    log(f"check int8 fill: trunk runs per epoch {out['trunk_runs']}, qgemm_s8 {fill_q} launches over "
+        f"{sum(out['trunk_runs'])} fill and {len(out['losses']) - sum(out['trunk_runs'])} cached steps "
+        f"(expected 36 per fill batch), tiers {({k: len(v) for k, v in out['times'].items()})}")
+    if out["trunk_runs"] != [2, 0] or fill_q != 36 * 2:
+        raise AssertionError("int8-filled cache: wrong trunk runs or qgemm_s8 launches")
+
+
+def check_disk_tier(loader, root: str) -> None:
+    """A trainer with ``cache_disk_dir`` writes a batch's features through
+    to disk; a fresh trainer over the same loader serves that batch from the
+    store with no trunk run and the same loss."""
+    losses, stores = [], []
+    for i in range(2):
+        trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=0, cache_disk_dir=root)
+        trainer.attach_disk(loader)
+        raw = next(iter(loader.batches(0)))
+        t0 = time.perf_counter()
+        _, metrics = trainer.train_step(trainer.init_state(), raw)
+        losses.append(float(metrics["loss"]))
+        disk = trainer.feature_cache.disk
+        stores.append(disk.dir)
+        log(f"check disk tier, trainer {i + 1}: {trainer.last_tier} step {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"trunk runs {trainer.trunk_runs}, store {len(disk)} windows, {disk.nbytes / 2**30:.3f} GiB, "
+            f"loss {losses[-1]:.9g}")
+        if trainer.trunk_runs != (1 if i == 0 else 0):
+            raise AssertionError("disk tier: the second trainer ran the trunk")
+    if stores[0] != stores[1] or abs(losses[1] - losses[0]) > CACHED_LOSS_TOL * abs(losses[0]):
+        raise AssertionError(f"disk tier: stores {stores}, losses {losses}")
+
+
+def check_evaluate(trainer, state, loader) -> None:
+    """``Trainer.evaluate`` twice over the validation loader (the second
+    pass from its eval cache, no trunk run), then once uncached: the
+    losses agree."""
+    runs = []
+    for use_cache in (True, True, False):
+        before = trainer.trunk_runs
+        t0 = time.perf_counter()
+        res = trainer.evaluate(state, loader, use_cache=use_cache)
+        runs.append((trainer.trunk_runs - before, res))
+        log(f"evaluate ({'cached' if use_cache else 'uncached'}): {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"trunk runs {runs[-1][0]}, " + ", ".join(f"{k} {v:.9g}" for k, v in res.items()))
+    first = runs[0][1]
+    err = max(abs(res[k] - first[k]) / abs(first[k]) for _, res in runs[1:] for k in first)
+    log(f"check evaluate: trunk runs per pass {[r for r, _ in runs]}, largest relative gap {err:.2e} "
+        f"(tol {EVAL_TOL})")
+    if [r for r, _ in runs] != [2, 0, 2] or err > EVAL_TOL or not all(np.isfinite(list(first.values()))):
+        raise AssertionError("evaluate: wrong trunk runs or losses differ")
+
+
+def cached_training(counters: dict, qg) -> dict:
+    """Phase 10: full-width bf16 training from TFRecord shards with the
+    frozen-trunk feature cache. Writes the synthetic shards, decodes them
+    with the native loader, trains CACHE_EPOCHS epochs (epoch 1 fills the
+    device pool with 96 windows and the host tier with 32; then each epoch
+    is a device-tier and a mixed-tier step), with the launch counts of
+    ``counters`` reset just before and read just after; then the host tier
+    alone, the checks against the full step, f8 storage, the int8 fill, the
+    disk tier and ``evaluate``. Returns the launch counts."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, native, write_synthetic_dataset
+
+    scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(dir=scratch)
+    try:
+        t0 = time.perf_counter()
+        lists = write_synthetic_dataset(str(Path(root) / "data"), seed=SEED, **CACHE_DATA)
+        log(f"cached training: wrote {np.prod(list(CACHE_DATA.values()))} one-second shards in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ok = native.available()
+        log(f"native ingest: built {ok} in {time.perf_counter() - t0:.2f} s ({native.library_path().name}); "
+            f"{native.build_error() or 'no error'}")
+        loader = AcousticImageDataLoader(lists["training"], "training", CACHE_CLIPS, shuffle=False,
+                                         use_native=True)
+        valid = AcousticImageDataLoader(lists["validation"], "validation", CACHE_CLIPS, use_native=True)
+        t0 = time.perf_counter()
+        clips = sum(b.valid for b in loader.batches(0))
+        secs = time.perf_counter() - t0
+        log(f"loader ({loader.decoder} decoder, {loader.num_io_threads} threads; {card()}): {clips} clips in "
+            f"{secs:.3f} s, {clips / secs:.1f} clips/s")
+
+        check_cached_against_full(loader)
+        torch.cuda.empty_cache()
+
+        trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        out = run_epochs(trainer, loader, CACHE_EPOCHS, "bf16")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = len(out["losses"])
+        fills = sum(out["trunk_runs"])
+        tiers = {k: len(v) for k, v in out["times"].items()}
+        per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 29, "qgemm_s8": 0}
+        log(f"cached training bf16: trunk runs per epoch {out['trunk_runs']} (expected [2, 0, 0]), tiers {tiers}, "
+            f"pool {trainer.device_cache.resident} windows, host {len(trainer.feature_cache)} windows, "
+            f"launches over {steps} steps {launches} (expected {per_step} per step), peak device memory "
+            f"{peak:.3f} GiB")
+        if out["trunk_runs"] != [2, 0, 0] or tiers != {"fill": 2, "device": 2, "mixed": 2}:
+            raise AssertionError("cached training: wrong trunk runs or tiers")
+        for k, v in per_step.items():
+            if launches[k] != v * steps:
+                raise AssertionError(f"cached training {k}: {launches[k]} launches, expected {v * steps}")
+        timing = {k: timing_summary(k, v) for k, v in out["times"].items()}
+        first = next(iter(loader.batches(0)))  # resident in the pool
+        profile(lambda: trainer.train_step(out["state"], first), "device-tier step")
+
+        host = cache_trainer(cache_trunk_features=True, cache_device_bytes=0)
+        out_h = run_epochs(host, loader, CACHE_EPOCHS, "host tier")
+        if out_h["trunk_runs"] != [2, 0, 0] or set(out_h["times"]) != {"fill", "host"}:
+            raise AssertionError("host-tier training: wrong trunk runs or tiers")
+        timing["host"] = timing_summary("host", out_h["times"]["host"])
+        del host, out_h
+        torch.cuda.empty_cache()
+
+        check_f8_storage(loader)
+        torch.cuda.empty_cache()
+        check_int8_fill(loader, qg, counters)
+        torch.cuda.empty_cache()
+        check_disk_tier(loader, str(Path(root) / "store"))
+        check_evaluate(trainer, out["state"], valid)
+        log(f"cached training ({card()}): peak device memory {peak:.3f} GiB, decode {clips / secs:.1f} clips/s, "
+            + ", ".join(f"{k} {v['median']:.2f} ms ({CACHE_CLIPS / v['median'] * 1e3:.1f} clips/s)"
+                        for k, v in timing.items()))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -1750,6 +2088,27 @@ def kernels_only(group: str, package_root) -> int:
     return 0
 
 
+def cached_only() -> int:
+    """``--cached``: build the kernels of the cached path and run phase 10
+    alone. Prints no result line."""
+    from acoustic_image_generation_tpu_torch.ops import build
+    from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
+    from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
+    from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"cached training only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
+    for name, (secs, _) in build.build(("mfcc", "conv_chain", "qgemm_s8")).items():
+        log(f"build {name}: {secs:.2f} s")
+    counters = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
+                "qgemm_s8": qg.qgemm_s8}
+    t0 = time.perf_counter()
+    cached_training(counters, qg)
+    log(f"phase cached training: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1759,6 +2118,8 @@ def main() -> int:
                       help="only build, check and time the trunk's GEMM kernels (matmul_stats, qgemm_s8)")
     only.add_argument("--frontends", action="store_const", const="frontends", dest="only",
                       help="only build, check and time the frontends' FFT kernels (mfcc, stft)")
+    only.add_argument("--cached", action="store_const", const="cached", dest="only",
+                      help="only run phase 10, cached-feature training from shards")
     parser.add_argument("--package-root", default=None,
                         help="with --trunk-gemms or --frontends: import the port from this checkout "
                              "(e.g. a parent commit's)")
@@ -1767,6 +2128,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.only == "cached":
+        return cached_only()
     if args.only:
         return kernels_only(args.only, args.package_root)
     # IEEE f32 wherever f32 is compared: no TF32 in matmuls or convolutions.
@@ -1881,14 +2244,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_embed_train_against_cpu()
     log(f"phase embedding training: {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    cached_training(every, qg)
+    torch.cuda.empty_cache()
+    log(f"phase cached training: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us")  # mfcc, stft: entry_times

@@ -29,9 +29,13 @@ def test_port_imports_no_jax():
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
             importlib.import_module(m.name)
         import chip_smoke
+        needed = ["acoustic_image_generation_tpu_torch.data." + m for m in
+                  ("tfrecord", "proto", "schema", "windowing", "native", "pipeline", "synthetic")]
+        needed.append("acoustic_image_generation_tpu_torch.train.feature_cache")
+        assert all(m in sys.modules for m in needed), [m for m in needed if m not in sys.modules]
         bad = sorted(
             m for m in sys.modules
-            if m.startswith("jax") or m.startswith("flax")
+            if m.startswith("jax") or m.startswith("flax") or m.startswith("ml_dtypes")
             or m == "acoustic_image_generation_tpu"
             or m.startswith("acoustic_image_generation_tpu.")
         )
@@ -44,7 +48,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 38  # every module of the package, subpackages included
+    assert int(count) >= 46  # every module of the package, subpackages included
     assert bad == "[]"
 
 
@@ -76,6 +80,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     embed = EmbedTask(EmbedConfig(compute_dtype="float32"), device="cpu")
     assert EmbeddingService(embed).device == torch.device("cpu")
     assert Trainer(embed).device == torch.device("cpu") and not embed.reads_mfcc
+    # the cached-feature trainer
+    cached = GenerationConfig(resnet_units=(1, 1, 1, 1), trunk_bn="frozen", cache_trunk_features=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(GenerationTask(cached))
+    trainer = Trainer(GenerationTask(cached, device="cpu"))
+    assert trainer.device == torch.device("cpu") and trainer.feature_cache is not None
 
 
 def test_qgemm_s8_runs_its_plain_version_on_the_cpu_only():
