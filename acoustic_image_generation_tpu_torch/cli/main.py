@@ -1,0 +1,262 @@
+"""The experiment command line of the port:
+
+    python -m acoustic_image_generation_tpu_torch.cli.main \\
+        --mode train --embedding 1 --mfcc 1 --num_skip_conn 1 \\
+        --train_file lists/training.txt --valid_file lists/validation.txt \\
+        --batch_size 32 --num_epochs 50 --exp_name acres1 --checkpoint_dir ckpt
+    python -m acoustic_image_generation_tpu_torch.cli.main --mode test \\
+        --embedding 1 --mfcc 1 --test_file lists/testing.txt \\
+        --exp_name acres1 --checkpoint_dir ckpt --restore_checkpoint ckpt/acres1/epoch_12.ckpt
+
+Counterpart of ``acoustic_image_generation_tpu/cli/main.py``: every flag of
+its parser with its default, mapped onto the port's ``ExperimentConfig``,
+plus ``--device`` (``cuda``, the default, or ``cpu``; without a GPU the
+default raises). The run directory, its files and its checkpoints are the
+JAX package's, so either package can test or resume the other's runs.
+
+Task dispatch: ``--embedding 1 --mfcc 1`` (the AAAI'21 generator) runs
+``GenerationTask``. Every other task raises ``NotImplementedError`` naming
+its item in ``ROADMAP.md`` Queue 1: the embedding family (item 6), the
+projection, joint, reconstruction and classification tasks (item 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from acoustic_image_generation_tpu_torch.core.config import (
+    DataConfig,
+    ExperimentConfig,
+    ModelConfig,
+    OptimConfig,
+    ParallelConfig,
+    RunConfig,
+    generation_config,
+)
+
+
+def _resnet_units(s: str) -> tuple[int, ...]:
+    """argparse type for --resnet_units: exactly 4 positive ints."""
+    try:
+        units = tuple(int(u) for u in s.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"not a comma-separated int list: {s!r}")
+    if len(units) != 4 or any(u < 1 for u in units):
+        raise argparse.ArgumentTypeError(f"--resnet_units needs 4 positive ints (e.g. 3,4,6,3), got {s!r}")
+    return units
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="acoustic_image_generation_tpu_torch",
+        description="acoustic-image generation on PyTorch and CUDA",
+    )
+    # mode / model selection
+    p.add_argument("--mode", default="train", choices=["train", "test"])
+    p.add_argument("--model", default="UNet", choices=["UNet", "DualCamNet"])
+    p.add_argument("--encoder_type", default="Video", choices=["Video", "Audio", "Ac", "Energy"])
+    p.add_argument("--embedding", type=int, default=0)
+    p.add_argument("--mfcc", type=int, default=0)
+    p.add_argument("--mfccmap", type=int, default=0)
+    p.add_argument("--num_skip_conn", type=int, default=1, choices=[0, 1, 2])
+    p.add_argument("--ae", type=int, default=0)
+    p.add_argument("--resnet_units", type=_resnet_units, default=(3, 4, 6, 3))
+    p.add_argument("--proxy", type=int, default=0)
+    p.add_argument("--fusion", type=int, default=0)
+    p.add_argument("--moddrop", type=int, default=0)
+    p.add_argument("--l2", type=int, default=0)
+    p.add_argument("--project", type=int, default=0)
+    p.add_argument("--jointmvae", type=int, default=0)
+    p.add_argument("--onlyaudiovideo", type=int, default=0)
+    p.add_argument("--correspondence", type=int, default=0)
+    p.add_argument("--temporal_pooling", type=int, default=0)
+    p.add_argument("--num_class", type=int, default=128)
+    # data
+    p.add_argument("--datatype", default="outdoor", choices=["outdoor", "old", "music"])
+    p.add_argument("--train_file", default=None)
+    p.add_argument("--valid_file", default=None)
+    p.add_argument("--test_file", default=None)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--sample_length", type=int, default=1)
+    p.add_argument("--total_length", type=int, default=30)
+    p.add_argument("--number_of_crops", type=int, default=30)
+    p.add_argument("--buffer_size", type=int, default=100)
+    p.add_argument("--block_size", type=int, default=1)
+    # optimization
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--latent_loss", type=float, default=1e-6)
+    p.add_argument("--margin", type=float, default=0.2)
+    p.add_argument("--MSE", type=int, default=1)
+    p.add_argument("--huber_loss", type=int, default=1)
+    p.add_argument("--bce_loss", type=int, default=0)
+    # bookkeeping
+    p.add_argument("--exp_name", default="exp")
+    p.add_argument("--checkpoint_dir", default="checkpoints")
+    p.add_argument("--tensorboard", default=None)
+    p.add_argument("--init_checkpoint", default=None)
+    p.add_argument("--acoustic_init_checkpoint", default=None)
+    p.add_argument("--audio_init_checkpoint", default=None)
+    p.add_argument("--visual_init_checkpoint", default=None)
+    p.add_argument("--restore_checkpoint", default=None)
+    p.add_argument("--display_freq", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--num_devices", type=int, default=None)
+    # the frozen trunk and its feature cache
+    p.add_argument("--trunk_bn", default="train", choices=["train", "frozen"])
+    p.add_argument("--cache_trunk_features", type=int, default=0)
+    p.add_argument("--trunk_quant", default="none", choices=["none", "int8"])
+    p.add_argument("--cache_disk_dir", default=None, help="cross-run disk tier for cached trunk features")
+    p.add_argument("--cache_features_dtype", default="bf16", choices=["bf16", "f8_e4m3"],
+                   help="storage dtype for cached trunk features (f8_e4m3 halves every cache tier's footprint)")
+    p.add_argument("--fused_conv", type=int, default=0,
+                   help="accepted for the JAX package's recipes; on the card the port always runs the "
+                        "generator's 3x3 conv pairs on its conv_chain CUDA kernels")
+    p.add_argument("--fused_qgemm", type=int, default=0,
+                   help="with --trunk_quant int8: every 1x1 trunk conv on the qgemm_s8 CUDA kernel "
+                        "(conv+dequant+residual+ReLU+requant in one kernel)")
+    p.add_argument("--host_shard", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: cuda (raises without a GPU) or cpu (the kernels' plain versions)")
+    return p
+
+
+def config_from_args(args) -> ExperimentConfig:
+    return ExperimentConfig(
+        data=DataConfig(
+            datatype=args.datatype,
+            train_file=args.train_file,
+            valid_file=args.valid_file,
+            test_file=args.test_file,
+            batch_size=args.batch_size,
+            sample_length=args.sample_length,
+            total_length=args.total_length,
+            number_of_crops=args.number_of_crops,
+            buffer_size=args.buffer_size,
+            block_size=args.block_size,
+            correspondence=bool(args.correspondence),
+            host_shard=bool(args.host_shard),
+        ),
+        model=ModelConfig(
+            model=args.model,
+            encoder_type=args.encoder_type,
+            embedding=bool(args.embedding),
+            mfcc=bool(args.mfcc),
+            mfccmap=bool(args.mfccmap),
+            num_skip_conn=args.num_skip_conn,
+            ae=bool(args.ae),
+            resnet_units=args.resnet_units,
+            proxy=bool(args.proxy),
+            fusion=bool(args.fusion),
+            moddrop=bool(args.moddrop),
+            l2=bool(args.l2),
+            project=bool(args.project),
+            jointmvae=bool(args.jointmvae),
+            onlyaudiovideo=bool(args.onlyaudiovideo),
+            correspondence=bool(args.correspondence),
+            temporal_pooling=bool(args.temporal_pooling),
+            num_class=args.num_class,
+            trunk_bn=args.trunk_bn,
+            cache_trunk_features=bool(args.cache_trunk_features),
+            trunk_quant=args.trunk_quant,
+            cache_disk_dir=args.cache_disk_dir,
+            cache_features_dtype=args.cache_features_dtype,
+            fused_conv=bool(args.fused_conv),
+            fused_qgemm=bool(args.fused_qgemm),
+        ),
+        optim=OptimConfig(
+            learning_rate=args.learning_rate,
+            num_epochs=args.num_epochs,
+            latent_loss=args.latent_loss,
+            margin=args.margin,
+            mse=bool(args.MSE),
+            huber=bool(args.huber_loss),
+            bce=bool(args.bce_loss),
+        ),
+        run=RunConfig(
+            mode=args.mode,
+            exp_name=args.exp_name,
+            checkpoint_dir=args.checkpoint_dir,
+            tensorboard=args.tensorboard,
+            init_checkpoint=args.init_checkpoint,
+            acoustic_init_checkpoint=args.acoustic_init_checkpoint,
+            audio_init_checkpoint=args.audio_init_checkpoint,
+            visual_init_checkpoint=args.visual_init_checkpoint,
+            restore_checkpoint=args.restore_checkpoint,
+            display_freq=args.display_freq,
+            seed=args.seed,
+        ),
+        parallel=ParallelConfig(compute_dtype=args.compute_dtype, num_devices=args.num_devices),
+    )
+
+
+def select_task(config: ExperimentConfig, device: str = "cuda"):
+    """The task of the experiment on ``device``, its weights random from
+    ``run.seed`` (JAX's trainer initializes from that seed too, with its own
+    generator)."""
+    m = config.model
+    if m.embedding and m.mfcc and not (m.project or m.jointmvae):
+        from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
+
+        return GenerationTask(generation_config(config), device=device).init_params(config.run.seed)
+    if m.embedding and (m.project or m.jointmvae):
+        raise NotImplementedError("the projection and joint tasks are not ported (ROADMAP.md Queue 1, item 7)")
+    if m.embedding:
+        raise NotImplementedError("training the embedding family from the command line waits for its "
+                                  "evaluation (ROADMAP.md Queue 1, item 6)")
+    raise NotImplementedError("the reconstruction and classification tasks are not ported "
+                              "(ROADMAP.md Queue 1, item 7)")
+
+
+def make_loader(config: ExperimentConfig, split: str):
+    """The split's ``AcousticImageDataLoader``, or None without its list."""
+    from acoustic_image_generation_tpu_torch.data.pipeline import AcousticImageDataLoader
+
+    path = {"training": config.data.train_file, "validation": config.data.valid_file,
+            "testing": config.data.test_file}[split]
+    if path is None:
+        return None
+    return AcousticImageDataLoader(path, split, config.data.batch_size, sample_length=config.data.sample_length,
+                                   datakind=config.data.datatype, seed=config.run.seed)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    config = config_from_args(args)
+    task = select_task(config, args.device)
+
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+    from acoustic_image_generation_tpu_torch.train.warmstart import apply_init_checkpoints
+
+    trainer = Trainer(task, config)
+    run = config.run
+    if run.mode == "train":
+        train_loader = make_loader(config, "training")
+        valid_loader = make_loader(config, "validation")
+        if train_loader is None or valid_loader is None:
+            raise SystemExit("train mode needs --train_file and --valid_file")
+        state = None
+        if run.restore_checkpoint or run.init_checkpoint or any(
+            (run.visual_init_checkpoint, run.acoustic_init_checkpoint, run.audio_init_checkpoint)
+        ):
+            state = trainer.init_state()
+            if run.restore_checkpoint:  # the full resume: parameters, Adam slots, step
+                state = trainer.restore(run.restore_checkpoint, state)
+            state = apply_init_checkpoints(state, config)
+        trainer.fit(train_loader, valid_loader, state=state)
+    else:
+        test_loader = make_loader(config, "testing")
+        if test_loader is None:
+            raise SystemExit("test mode needs --test_file")
+        ckpt_path = run.init_checkpoint or run.restore_checkpoint
+        if not ckpt_path:
+            raise SystemExit("test mode needs --init_checkpoint or --restore_checkpoint")
+        state = trainer.restore(ckpt_path, trainer.init_state())
+        print(trainer.test(state, test_loader))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,228 @@
+"""The experiment configuration: the counterpart of
+``acoustic_image_generation_tpu/core/config.py``.
+
+The same five dataclasses with the same fields and defaults, and the same
+JSON form (``to_json``: ``indent=2``, ``sort_keys=True``), so a
+``configuration.txt`` written by either package loads in the other.
+``generation_config`` builds the port's ``GenerationConfig`` (the fields the
+generation task and its train step read) from an ``ExperimentConfig``.
+
+Fields the port reads as JAX does: the data fields the loader takes
+(``datatype``, ``train_file``/``valid_file``/``test_file``, ``batch_size``,
+``sample_length``), the model, optimizer and run fields. Fields it keeps
+only to carry them: the TPU-only ``pallas_mfcc`` and ``fused_conv`` (on the
+card the port always runs the MFCC frontend and the generator's conv pairs
+on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``
+asks for one device: more devices, FSDP or tensor parallelism raise in
+``generation_config`` (DDP/FSDP over NCCL is ``ROADMAP.md`` Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any
+
+from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection and input-pipeline options."""
+
+    datatype: str = "outdoor"  # outdoor | old | music
+    train_file: str | None = None
+    valid_file: str | None = None
+    test_file: str | None = None
+    batch_size: int = 8
+    sample_length: int = 1  # seconds per clip window
+    total_length: int = 30
+    number_of_crops: int = 30
+    buffer_size: int = 100
+    block_size: int = 1
+    sample_rate: int = 12288
+    shuffle_train: bool = True
+    normalize_spectrogram: bool = False
+    correspondence: bool = False
+    correspondence_video: bool = False
+    random_pick: bool = False
+    build_spectrogram: bool = True
+    # modalities: 0 = acoustic images, 1 = audio samples, 2 = video
+    modalities: tuple[int, ...] = (0, 1, 2)
+    num_io_threads: int = 8
+    prefetch_batches: int = 2
+    pallas_mfcc: bool = False  # the JAX package's TPU kernel switch; the port's card path always runs mfcc.cu
+    stats_dir: str | None = None
+    host_shard: bool = False  # one process here: a no-op
+
+    @property
+    def nr_frames(self) -> int:
+        return self.block_size * self.sample_length
+
+    @property
+    def num_classes(self) -> int:
+        return {"outdoor": 10, "old": 14, "music": 9}[self.datatype]
+
+    @property
+    def num_locations(self) -> int:
+        return {"outdoor": 61, "old": 3, "music": 11}[self.datatype]
+
+    @property
+    def num_channels(self) -> int:
+        return {"outdoor": 12, "old": 12, "music": 13}[self.datatype]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Model selection; the generation fields as ``GenerationConfig``
+    documents them."""
+
+    model: str = "UNet"  # UNet | DualCamNet
+    encoder_type: str = "Video"  # Energy | Video | Ac | Audio
+    embedding: bool = False
+    mfcc: bool = False
+    mfccmap: bool = False
+    num_skip_conn: int = 1  # 0 | 1 | 2 skip connections in UNetAcResNet
+    ae: bool = False  # deterministic autoencoder instead of VAE
+    proxy: bool = False
+    fusion: bool = False
+    moddrop: bool = False
+    l2: bool = False
+    project: bool = False
+    jointmvae: bool = False
+    onlyaudiovideo: bool = False
+    correspondence: bool = False
+    temporal_pooling: bool = False
+    num_class: int = 128
+    resnet_units: tuple[int, int, int, int] = (3, 4, 6, 3)
+    trunk_bn: str = "train"  # train | frozen
+    cache_trunk_features: bool = False
+    cache_device_bytes: int = 4 << 30
+    cache_eval_bytes: int = 8 << 30
+    cache_disk_dir: str | None = None
+    cache_disk_bytes: int = 256 << 30
+    cache_features_dtype: str = "bf16"  # bf16 | f8_e4m3
+    trunk_quant: str = "none"  # none | int8
+    fused_conv: bool = False  # the JAX package's TPU kernel switch; the port's card path always runs conv_chain.cu
+    fused_qgemm: bool = False
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    learning_rate: float = 1e-4
+    num_epochs: int = 100
+    latent_loss: float = 1e-6
+    margin: float = 0.2
+    mse: bool = True
+    huber: bool = True
+    bce: bool = False
+    resnet_weight_decay: float = 5e-4
+    tf1_adam: bool = True  # the port has TF1 Adam only
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    mode: str = "train"  # train | test
+    exp_name: str = "exp"
+    checkpoint_dir: str = "checkpoints"
+    tensorboard: str | None = None
+    init_checkpoint: str | None = None
+    acoustic_init_checkpoint: str | None = None
+    audio_init_checkpoint: str | None = None
+    visual_init_checkpoint: str | None = None
+    restore_checkpoint: str | None = None
+    display_freq: int = 1
+    seed: int = 0
+    # write the epoch snapshots on a background thread (train/checkpoint.py
+    # AsyncCheckpointer): a device copy of the state while a write is out
+    async_checkpoint: bool = True
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    data_axis: str = "data"
+    num_devices: int | None = None  # None: the one device the port runs on
+    compute_dtype: str = "float32"  # or "bfloat16"
+    fsdp: bool = False
+    tensor_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    def save(self, path: str) -> None:
+        """Write ``configuration.txt``."""
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "ExperimentConfig":
+        return ExperimentConfig(
+            data=_build(DataConfig, d.get("data", {})),
+            model=_build(ModelConfig, d.get("model", {})),
+            optim=_build(OptimConfig, d.get("optim", {})),
+            run=_build(RunConfig, d.get("run", {})),
+            parallel=_build(ParallelConfig, d.get("parallel", {})),
+        )
+
+    @staticmethod
+    def load(path: str) -> "ExperimentConfig":
+        with open(path) as f:
+            return ExperimentConfig.from_dict(json.load(f))
+
+
+def _build(cls, values: dict):
+    """``cls(**values)`` with JSON's lists back as the tuples the tuple
+    fields hold."""
+    tuples = {f.name for f in dataclasses.fields(cls) if str(f.type).startswith("tuple")}
+    return cls(**{k: tuple(v) if k in tuples and isinstance(v, list) else v for k, v in values.items()})
+
+
+def generation_config(config: ExperimentConfig) -> GenerationConfig:
+    """The port's ``GenerationConfig`` of an experiment. Raises for what
+    the port does not run: more than one device, FSDP, tensor parallelism,
+    or Adam without TF1's numerics."""
+    par = config.parallel
+    if (par.num_devices or 1) > 1 or par.fsdp or par.tensor_parallel > 1:
+        raise NotImplementedError(
+            "the port trains on one device: num_devices > 1, fsdp and tensor_parallel > 1 wait for "
+            "DDP/FSDP over NCCL (ROADMAP.md Queue 1, item 8)"
+        )
+    if not config.optim.tf1_adam:
+        raise NotImplementedError("the port's optimizer is TF1 Adam only (optim.tf1_adam=True)")
+    m, o = config.model, config.optim
+    return GenerationConfig(
+        num_skip_conn=m.num_skip_conn,
+        ae=m.ae,
+        resnet_units=tuple(m.resnet_units),
+        trunk_bn=m.trunk_bn,
+        trunk_quant=m.trunk_quant,
+        fused_qgemm=m.fused_qgemm,
+        correspondence=config.data.correspondence,
+        compute_dtype=config.parallel.compute_dtype,
+        learning_rate=o.learning_rate,
+        latent_loss=o.latent_loss,
+        mse=o.mse,
+        huber=o.huber,
+        bce=o.bce,
+        resnet_weight_decay=o.resnet_weight_decay,
+        seed=config.run.seed,
+        cache_trunk_features=m.cache_trunk_features,
+        cache_device_bytes=m.cache_device_bytes,
+        cache_eval_bytes=m.cache_eval_bytes,
+        cache_disk_dir=m.cache_disk_dir,
+        cache_disk_bytes=m.cache_disk_bytes,
+        cache_features_dtype=m.cache_features_dtype,
+    )

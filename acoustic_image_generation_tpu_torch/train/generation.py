@@ -101,6 +101,7 @@ class GenerationConfig:
 
 class GenerationTask(nn.Module):
     reads_mfcc = True  # the generator's input: the trainer's batches compute it
+    eval_metric = "mse"  # the eval loss that gates the best epoch
 
     def __init__(self, config: GenerationConfig = GenerationConfig(), *, device=None):
         super().__init__()

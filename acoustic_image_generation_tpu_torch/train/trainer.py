@@ -1,16 +1,33 @@
 """The train step, for the generation task or the embedding task, and the
-generation task's evaluation.
+generation task's evaluation, epoch loop, test and checkpoints.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
 (``__init__``, ``init_state``, ``_prepare``, ``_step_core``, the cached
 step variants, ``_eval_step_impl``, ``evaluate`` and
-``_maybe_build_qtrunk``): raw clips -> device preprocessing -> train-mode
+``_maybe_build_qtrunk``, ``fit``, ``test``, ``save``, ``restore`` and
+``_log_media``): raw clips -> device preprocessing -> train-mode
 forward and loss -> backward -> TF1 Adam on the trainable parameters. JAX
 runs it as one jitted program; here it runs eagerly on the task's device and
 updates the state in place, the BN running averages of train-mode BNs
 included. A task whose ``reads_mfcc`` is false (``EmbedTask``) gets batches
 without the MFCC frontend (JAX's jit drops it as dead code); ``eval_step``
 and ``evaluate`` are the generation task's only.
+
+``fit`` is JAX's epoch loop: ``configuration.txt``, ``metrics.jsonl``, the
+best tracker's ``model.txt``, a snapshot every 10 epochs and at every best
+(``epoch_{N}.ckpt`` in JAX's file format, ``train/checkpoint.py``, written
+on a background thread unless ``run.async_checkpoint`` is off), epochs
+numbered on from ``state.step`` on a resume, and on any exception in an
+epoch the crash checkpoint ``epoch_interrupted_{N}.ckpt`` with its
+``.meta.json`` (the batch it stopped at), from which ``restore`` + ``fit``
+resume mid-epoch: the loader replays the epoch's seeded order and skips the
+consumed batches, and the step noise is keyed on ``state.step``, so the
+resumed run is the uninterrupted one (bit for bit on the CPU). A fault
+inside the optimizer's in-place update leaves no consistent state, and then
+no crash checkpoint is written (``checkpoint.TornStateError``). The
+trainer reads the step's settings from the task's config; ``config`` (an
+``ExperimentConfig``) carries the run's: its directory
+(``run.checkpoint_dir/run.exp_name``), epochs, snapshots and logging.
 
 A batch is a ``data.pipeline.RawBatch`` or a dict of its arrays
 (``acoustic``, ``audio``, ``video``, optionally ``action``, ``location``,
@@ -42,12 +59,18 @@ different numbers from the same seed, so tests inject the noise instead
 from __future__ import annotations
 
 import hashlib
+import os
+import sys
+import time
 import weakref
+from datetime import datetime
 
 import numpy as np
 import torch
 
+from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
+from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
@@ -82,11 +105,32 @@ def _as_tensor(a):
     return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else torch.as_tensor(a)
 
 
+def prepare(raw: dict, device, *, compute_mfcc: bool = True) -> Batch:
+    """(B, F, ...) clips -> (B*F, ...) frames on ``device`` -> device
+    preprocessing with the acoustic image. ``raw``: ``acoustic``
+    (B,F,36,48,12) float32, ``audio`` (B,F,1024) int32, ``video``
+    (B,F,224,298,3) uint8 BGR, and optionally ``action`` and ``location``
+    (B,) int, repeated per frame; as numpy arrays or tensors."""
+    flat = {}
+    for key in ("acoustic", "audio", "video"):
+        t = _as_tensor(raw[key])
+        flat[key] = t.reshape(-1, *t.shape[2:]).to(device, non_blocking=True)
+    frames = flat["audio"].shape[0] // raw["audio"].shape[0]
+    for key in ("action", "location"):
+        if key in raw:
+            flat[key] = _as_tensor(raw[key]).repeat_interleave(frames).to(device)
+    return preprocess_batch(flat["audio"], flat["video"], flat["acoustic"], flat.get("action"),
+                            flat.get("location"), compute_mfcc=compute_mfcc)
+
+
 class Trainer:
-    def __init__(self, task: GenerationTask | EmbedTask):
+    def __init__(self, task: GenerationTask | EmbedTask, config: ExperimentConfig | None = None):
         self.task = task
         self.cfg = cfg = task.cfg
+        self.config = config if config is not None else ExperimentConfig()
+        self.run_dir = os.path.join(self.config.run.checkpoint_dir, self.config.run.exp_name)
         self.device = task.device
+        self._resume_meta = None  # a crash checkpoint's position, set by restore, read by fit
         self.qtrunk = None  # the int8 trunk of a generation task, built from the first batch
         self.trunk_runs = 0  # trunk forwards run by the steps and evaluations
         self.last_tier = None  # device | mixed | host | fill: the last cached step's source
@@ -114,22 +158,9 @@ class Trainer:
         return TrainState(step=0, task=self.task, optimizer=TF1Adam(trainable, self.cfg.learning_rate))
 
     def _prepare(self, raw: dict) -> Batch:
-        """(B, F, ...) clips -> (B*F, ...) frames on the task's device ->
-        device preprocessing with the acoustic image. ``raw``: ``acoustic``
-        (B,F,36,48,12) float32, ``audio`` (B,F,1024) int32, ``video``
-        (B,F,224,298,3) uint8 BGR, and optionally ``action`` and
-        ``location`` (B,) int, repeated per frame; as numpy arrays or
-        tensors."""
-        flat = {}
-        for key in ("acoustic", "audio", "video"):
-            t = _as_tensor(raw[key])
-            flat[key] = t.reshape(-1, *t.shape[2:]).to(self.device, non_blocking=True)
-        frames = flat["audio"].shape[0] // raw["audio"].shape[0]
-        for key in ("action", "location"):
-            if key in raw:
-                flat[key] = _as_tensor(raw[key]).repeat_interleave(frames).to(self.device)
-        return preprocess_batch(flat["audio"], flat["video"], flat["acoustic"], flat.get("action"),
-                                flat.get("location"), compute_mfcc=self.task.reads_mfcc)
+        """``prepare`` on the task's device, with the MFCC frontend if the
+        task reads it."""
+        return prepare(raw, self.device, compute_mfcc=self.task.reads_mfcc)
 
     def _cached_raw(self, raw: dict) -> dict:
         """The batch for a step on cached features: the trunk does not run,
@@ -259,15 +290,15 @@ class Trainer:
             if not cache.put(wid, host[i * frames:(i + 1) * frames].clone(), ram=ram):
                 break
 
-    def attach_disk(self, loader) -> None:
+    def attach_disk(self, loader, epoch: int = 0) -> None:
         """Attach the cross-run disk tier (``cache_disk_dir``) to the
-        training cache, as JAX's ``fit`` does before its first epoch; with
-        the int8 trunk, calibrate it first on the loader's first batch (its
-        scales are part of the features' identity)."""
+        training cache, as JAX's ``fit`` does before its first epoch
+        (``epoch``); with the int8 trunk, calibrate it first on that epoch's
+        first batch (its scales are part of the features' identity)."""
         if not getattr(self.cfg, "cache_disk_dir", None) or self.feature_cache is None:
             return
         if self.qtrunk is None and self.cfg.trunk_quant == "int8":
-            batches = loader.batches(0)
+            batches = loader.batches(epoch)
             first = next(batches, None)
             batches.close()
             if first is not None:
@@ -372,3 +403,150 @@ class Trainer:
             return {}
         count = max(float(count), 1.0)
         return {k: float(v) / count for k, v in sums.items()}
+
+    # ---------------------------------------------------------------- loops
+
+    def fit(self, train_loader, valid_loader, *, state: TrainState | None = None) -> TrainState:
+        """The epoch loop (JAX's ``Trainer.fit``): ``run.num_epochs`` epochs
+        of ``train_step`` over ``train_loader``, each followed by
+        ``evaluate`` on ``valid_loader`` (riding its eval cache when the
+        feature cache is on), a ``metrics.jsonl`` record, the best tracker
+        and the snapshots. ``state=None`` starts from ``init_state()``: the
+        task's parameters as they stand. A restored ``state`` continues the
+        epoch numbering from its step, or, after ``restore`` of a crash
+        checkpoint, from the batch the crash stopped at."""
+        if isinstance(self.task, EmbedTask):
+            raise NotImplementedError("fit for the embedding task waits for its evaluation "
+                                      "(ROADMAP.md Queue 1, item 6)")
+        cfg = self.config
+        os.makedirs(self.run_dir, exist_ok=True)
+        cfg.save(os.path.join(self.run_dir, "configuration.txt"))
+        metrics_log = ckpt.MetricsWriter(self.run_dir)
+        media_logger = None
+        if cfg.run.tensorboard:
+            from acoustic_image_generation_tpu_torch.utils.logger import Logger
+
+            media_logger = Logger(os.path.join(cfg.run.tensorboard, cfg.run.exp_name))
+        tracker = ckpt.BestTracker(self.run_dir, cfg.run.exp_name, mode="min")
+
+        start_epoch = skip_steps = 0
+        if state is None:
+            state = self.init_state()
+        else:
+            resume_meta, self._resume_meta = self._resume_meta, None
+            if resume_meta is not None:
+                # the crash checkpoint's exact position: replay the epoch's
+                # seeded order and skip the batches already consumed
+                start_epoch = int(resume_meta["epoch"])
+                skip_steps = int(resume_meta["step_in_epoch"])
+            else:
+                steps_per_epoch = max(train_loader.num_windows // train_loader.batch_size, 1)
+                start_epoch = state.step // steps_per_epoch
+        self.attach_disk(train_loader, start_epoch)
+
+        saver = ckpt.AsyncCheckpointer() if cfg.run.async_checkpoint else None
+        try:
+            for epoch in range(start_epoch, start_epoch + cfg.optim.num_epochs):
+                t0 = time.perf_counter()
+                skip_target, step0 = skip_steps, state.step
+                metrics = None
+                try:
+                    for raw_batch in train_loader.batches(epoch):
+                        if skip_steps:
+                            # the int8 trunk calibrates on the epoch's first batch, as JAX's does
+                            self._maybe_build_qtrunk(as_raw(raw_batch))
+                            skip_steps -= 1
+                            continue
+                        state, metrics = self.train_step(state, raw_batch)
+                    last_metrics = {k: float(v) for k, v in metrics.items()} if metrics else {}
+                except BaseException:
+                    # batches consumed: skipped ones, then one per step taken
+                    self._crash_checkpoint(state, epoch, skip_target - skip_steps + state.step - step0)
+                    raise
+                dt = time.perf_counter() - t0
+                n_steps = state.step - step0
+                val = self.evaluate(state, valid_loader, epoch)
+                val_loss = val[self.task.eval_metric]
+                clips_per_sec = n_steps * train_loader.batch_size / max(dt, 1e-9)
+                metrics_log.write({"epoch": epoch, "train": last_metrics, "valid": val, "steps": n_steps,
+                                   "seconds": dt, "clips_per_sec": clips_per_sec})
+                print(f"{datetime.now()}: {cfg.run.exp_name} - Epoch: {epoch}\t"
+                      f"Validation_{self.task.eval_metric}_Loss: {val_loss:6f}\t"
+                      f"({clips_per_sec:.1f} clips/s)", flush=True)
+                if media_logger is not None:
+                    media_logger.log_scalars({f"valid/{k}": v for k, v in val.items()}, epoch)
+                    self._log_media(media_logger, valid_loader, epoch)
+                is_best = tracker.update(epoch, val_loss)
+                if epoch % 10 == 0 or is_best:
+                    if saver is not None:
+                        saver.save(self.run_dir, epoch, state)
+                    else:
+                        ckpt.save_checkpoint(self.run_dir, epoch, state)
+        finally:
+            unwinding = sys.exc_info()[1] is not None
+            try:
+                if saver is not None:
+                    saver.close()
+            except Exception as e:
+                # a background write's error must not replace the exception
+                # being raised (the crash checkpoint's, say)
+                if not unwinding:
+                    raise
+                print(f"WARNING: background checkpoint write failed: {e!r}", file=sys.stderr)
+            finally:
+                if media_logger is not None:
+                    media_logger.close()
+        return state
+
+    def _crash_checkpoint(self, state: TrainState, epoch: int, step_in_epoch: int) -> None:
+        """Write ``epoch_interrupted_{epoch}.ckpt`` and its position, unless
+        the fault tore the state inside the optimizer's update."""
+        try:
+            path = ckpt.save_checkpoint(self.run_dir, f"interrupted_{epoch}", state)
+        except ckpt.TornStateError as e:
+            print(f"no crash checkpoint written: {e}", file=sys.stderr)
+            return
+        ckpt.save_resume_meta(path, epoch=epoch, step_in_epoch=step_in_epoch)
+        print(f"crash checkpoint {path}: epoch {epoch}, {step_in_epoch} batches consumed", file=sys.stderr)
+
+    def _log_media(self, logger, valid_loader, epoch: int) -> None:
+        """Reconstruction panels of the first validation clip's first frame:
+        the generated and the real acoustic image (channel means, jet) and
+        the video frame."""
+        batches = valid_loader.batches(epoch)
+        raw_batch = next(batches, None)
+        batches.close()
+        if raw_batch is None:
+            return
+        raw = as_raw(raw_batch)
+        with torch.no_grad():
+            batch = self._prepare(raw)
+            _, aux = self.task.eval_losses(batch, generator=eval_generator(self.cfg.seed, 0, self.device))
+        aux = aux.cpu().numpy()
+        logger.log_image("valid/generated", aux[0].mean(-1), epoch, cmap="jet")
+        real = batch.acoustic.cpu().numpy()
+        if real.shape[1:3] == aux.shape[1:3]:
+            logger.log_image("valid/real", real[0].mean(-1), epoch, cmap="jet")
+        logger.log_image("valid/video", batch.video[0].float().cpu().numpy(), epoch)
+
+    def test(self, state: TrainState, test_loader, epoch: int | None = None) -> dict:
+        """``evaluate`` without the eval cache (one pass), written to
+        ``test_accuracy{_epoch}.txt``."""
+        results = self.evaluate(state, test_loader, use_cache=False)
+        os.makedirs(self.run_dir, exist_ok=True)
+        suffix = f"_{epoch}" if epoch is not None else ""
+        with open(os.path.join(self.run_dir, f"test_accuracy{suffix}.txt"), "w") as f:
+            parts = " - ".join(f"{k}: {v:6f}" for k, v in sorted(results.items()))
+            f.write(f"{datetime.now()}: {self.config.run.exp_name} - {parts}\n")
+        return results
+
+    # ---------------------------------------------------------------- io
+
+    def save(self, name, state: TrainState) -> str:
+        return ckpt.save_checkpoint(self.run_dir, name, state)
+
+    def restore(self, path: str, template_state: TrainState) -> TrainState:
+        """Restore a checkpoint into ``template_state`` (in place). A crash
+        checkpoint's ``.meta.json`` position is kept for the next ``fit``."""
+        self._resume_meta = ckpt.load_resume_meta(path)
+        return ckpt.restore_checkpoint(path, template_state)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py --trunk-gemms [--package-root DIR]
     python3 chip_smoke.py --frontends [--package-root DIR]
     python3 chip_smoke.py --cached
+    python3 chip_smoke.py --workflow
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -11,7 +12,8 @@ PyTorch built for CUDA. It imports nothing of JAX. ``--trunk-gemms`` runs
 only phase 2's checks and times of ``matmul_stats`` and ``qgemm_s8``,
 ``--frontends`` those of ``mfcc`` and ``stft`` (of the checkout at ``DIR``,
 such as a parent commit's, with ``--package-root``), ``--cached`` phase 10
-alone; none prints a result line. Phases, each fatal on failure:
+alone, ``--workflow`` phase 11 alone; none prints a result line. Phases,
+each fatal on failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
@@ -73,7 +75,26 @@ alone; none prints a result line. Phases, each fatal on failure:
    a fresh trainer served from the disk tier without a trunk run; and
    ``Trainer.evaluate`` twice (the second pass from its cache) and
    uncached, with equal losses;
-11. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+11. the generation workflow from the command line, on phase 10's shards, at
+   full width, bf16, 64-clip batches, each pass with the launch counts reset
+   just before and read just after (``mfcc`` and ``conv_chain`` in every
+   one): ``cli.main.main(["--mode", "train", ...])`` for two epochs with the
+   CLI defaults (``trunk_bn="train"``: 1 ``mfcc``, 12 ``conv_chain`` and 29
+   backward launches a step, 1 and 12 a validation batch), then for three
+   with ``--trunk_bn frozen --cache_trunk_features 1`` (the trunk runs for
+   epoch 0's two training and two validation batches only), each run's
+   files and a falling validation loss; a crash injected into epoch 1's
+   loader, its ``epoch_interrupted_1.ckpt`` and position, and the resumed
+   run against the uninterrupted one (run twice, to measure what the weight
+   grad's atomics alone do); the checkpoint's size, synchronous and
+   background write times and restore times, and its restore into a CPU
+   task equal to the bit; ``--mode test --restore_checkpoint`` on the best
+   epoch as a subprocess of ``python -m
+   acoustic_image_generation_tpu_torch.cli.main``, against the same test in
+   this process; ``tools iou`` (11 threshold files, the AUC) and ``tools
+   generate --energy`` (shapes, finite values);
+12. print the card's name and power limit, one ``{"kernels": [...]}`` line
+   (each kernel's launches also over phase 11's passes, ``workflow_launches``),
    and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
@@ -83,6 +104,7 @@ f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import re
@@ -90,9 +112,12 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+REPO = Path(__file__).resolve().parent
 
 FRAMES = 96  # one request: 8 clips x 12 frames
 REQUESTS = 4
@@ -1962,90 +1987,431 @@ def check_evaluate(trainer, state, loader) -> None:
         raise AssertionError("evaluate: wrong trunk runs or losses differ")
 
 
-def cached_training(counters: dict, qg) -> dict:
-    """Phase 10: full-width bf16 training from TFRecord shards with the
-    frozen-trunk feature cache. Writes the synthetic shards, decodes them
-    with the native loader, trains CACHE_EPOCHS epochs (epoch 1 fills the
-    device pool with 96 windows and the host tier with 32; then each epoch
-    is a device-tier and a mixed-tier step), with the launch counts of
-    ``counters`` reset just before and read just after; then the host tier
-    alone, the checks against the full step, f8 storage, the int8 fill, the
-    disk tier and ``evaluate``. Returns the launch counts."""
+@contextlib.contextmanager
+def scratch_dir():
+    """A fresh directory under ``build/chip_smoke/``, removed on exit."""
     import shutil
     import tempfile
-    from pathlib import Path
 
-    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, native, write_synthetic_dataset
-
-    scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    scratch.mkdir(parents=True, exist_ok=True)
-    root = tempfile.mkdtemp(dir=scratch)
+    parent = REPO / "build" / "chip_smoke"
+    parent.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=parent))
     try:
-        t0 = time.perf_counter()
-        lists = write_synthetic_dataset(str(Path(root) / "data"), seed=SEED, **CACHE_DATA)
-        log(f"cached training: wrote {np.prod(list(CACHE_DATA.values()))} one-second shards in "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        ok = native.available()
-        log(f"native ingest: built {ok} in {time.perf_counter() - t0:.2f} s ({native.library_path().name}); "
-            f"{native.build_error() or 'no error'}")
-        loader = AcousticImageDataLoader(lists["training"], "training", CACHE_CLIPS, shuffle=False,
-                                         use_native=True)
-        valid = AcousticImageDataLoader(lists["validation"], "validation", CACHE_CLIPS, use_native=True)
-        t0 = time.perf_counter()
-        clips = sum(b.valid for b in loader.batches(0))
-        secs = time.perf_counter() - t0
-        log(f"loader ({loader.decoder} decoder, {loader.num_io_threads} threads; {card()}): {clips} clips in "
-            f"{secs:.3f} s, {clips / secs:.1f} clips/s")
-
-        check_cached_against_full(loader)
-        torch.cuda.empty_cache()
-
-        trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        out = run_epochs(trainer, loader, CACHE_EPOCHS, "bf16")
-        launches = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        steps = len(out["losses"])
-        fills = sum(out["trunk_runs"])
-        tiers = {k: len(v) for k, v in out["times"].items()}
-        per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 29, "qgemm_s8": 0}
-        log(f"cached training bf16: trunk runs per epoch {out['trunk_runs']} (expected [2, 0, 0]), tiers {tiers}, "
-            f"pool {trainer.device_cache.resident} windows, host {len(trainer.feature_cache)} windows, "
-            f"launches over {steps} steps {launches} (expected {per_step} per step), peak device memory "
-            f"{peak:.3f} GiB")
-        if out["trunk_runs"] != [2, 0, 0] or tiers != {"fill": 2, "device": 2, "mixed": 2}:
-            raise AssertionError("cached training: wrong trunk runs or tiers")
-        for k, v in per_step.items():
-            if launches[k] != v * steps:
-                raise AssertionError(f"cached training {k}: {launches[k]} launches, expected {v * steps}")
-        timing = {k: timing_summary(k, v) for k, v in out["times"].items()}
-        first = next(iter(loader.batches(0)))  # resident in the pool
-        profile(lambda: trainer.train_step(out["state"], first), "device-tier step")
-
-        host = cache_trainer(cache_trunk_features=True, cache_device_bytes=0)
-        out_h = run_epochs(host, loader, CACHE_EPOCHS, "host tier")
-        if out_h["trunk_runs"] != [2, 0, 0] or set(out_h["times"]) != {"fill", "host"}:
-            raise AssertionError("host-tier training: wrong trunk runs or tiers")
-        timing["host"] = timing_summary("host", out_h["times"]["host"])
-        del host, out_h
-        torch.cuda.empty_cache()
-
-        check_f8_storage(loader)
-        torch.cuda.empty_cache()
-        check_int8_fill(loader, qg, counters)
-        torch.cuda.empty_cache()
-        check_disk_tier(loader, str(Path(root) / "store"))
-        check_evaluate(trainer, out["state"], valid)
-        log(f"cached training ({card()}): peak device memory {peak:.3f} GiB, decode {clips / secs:.1f} clips/s, "
-            + ", ".join(f"{k} {v['median']:.2f} ms ({CACHE_CLIPS / v['median'] * 1e3:.1f} clips/s)"
-                        for k, v in timing.items()))
-        return launches
+        yield root
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def write_shards(root: Path) -> dict:
+    """The 128 one-second synthetic shards of phases 10 and 11; their
+    training, validation and testing lists each name all of them."""
+    from acoustic_image_generation_tpu_torch.data import write_synthetic_dataset
+
+    t0 = time.perf_counter()
+    lists = write_synthetic_dataset(str(root / "data"), seed=SEED, **CACHE_DATA)
+    log(f"wrote {np.prod(list(CACHE_DATA.values()))} one-second shards in {time.perf_counter() - t0:.1f} s")
+    return lists
+
+
+def cached_training(counters: dict, qg, lists: dict, root: Path) -> dict:
+    """Phase 10: full-width bf16 training from TFRecord shards (``lists``)
+    with the frozen-trunk feature cache. Decodes them with the native
+    loader, trains CACHE_EPOCHS epochs (epoch 1 fills the device pool with
+    96 windows and the host tier with 32; then each epoch is a device-tier
+    and a mixed-tier step), with the launch counts of ``counters`` reset
+    just before and read just after; then the host tier alone, the checks
+    against the full step, f8 storage, the int8 fill, the disk tier (under
+    ``root``) and ``evaluate``. Returns the launch counts."""
+    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    log(f"native ingest: built {ok} in {time.perf_counter() - t0:.2f} s ({native.library_path().name}); "
+        f"{native.build_error() or 'no error'}")
+    loader = AcousticImageDataLoader(lists["training"], "training", CACHE_CLIPS, shuffle=False,
+                                     use_native=True)
+    valid = AcousticImageDataLoader(lists["validation"], "validation", CACHE_CLIPS, use_native=True)
+    t0 = time.perf_counter()
+    clips = sum(b.valid for b in loader.batches(0))
+    secs = time.perf_counter() - t0
+    log(f"loader ({loader.decoder} decoder, {loader.num_io_threads} threads; {card()}): {clips} clips in "
+        f"{secs:.3f} s, {clips / secs:.1f} clips/s")
+
+    check_cached_against_full(loader)
+    torch.cuda.empty_cache()
+
+    trainer = cache_trainer(cache_trunk_features=True, cache_device_bytes=CACHE_POOL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    out = run_epochs(trainer, loader, CACHE_EPOCHS, "bf16")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(out["losses"])
+    fills = sum(out["trunk_runs"])
+    tiers = {k: len(v) for k, v in out["times"].items()}
+    per_step = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 29, "qgemm_s8": 0}
+    log(f"cached training bf16: trunk runs per epoch {out['trunk_runs']} (expected [2, 0, 0]), tiers {tiers}, "
+        f"pool {trainer.device_cache.resident} windows, host {len(trainer.feature_cache)} windows, "
+        f"launches over {steps} steps {launches} (expected {per_step} per step), peak device memory "
+        f"{peak:.3f} GiB")
+    if out["trunk_runs"] != [2, 0, 0] or tiers != {"fill": 2, "device": 2, "mixed": 2}:
+        raise AssertionError("cached training: wrong trunk runs or tiers")
+    for k, v in per_step.items():
+        if launches[k] != v * steps:
+            raise AssertionError(f"cached training {k}: {launches[k]} launches, expected {v * steps}")
+    timing = {k: timing_summary(k, v) for k, v in out["times"].items()}
+    first = next(iter(loader.batches(0)))  # resident in the pool
+    profile(lambda: trainer.train_step(out["state"], first), "device-tier step")
+
+    host = cache_trainer(cache_trunk_features=True, cache_device_bytes=0)
+    out_h = run_epochs(host, loader, CACHE_EPOCHS, "host tier")
+    if out_h["trunk_runs"] != [2, 0, 0] or set(out_h["times"]) != {"fill", "host"}:
+        raise AssertionError("host-tier training: wrong trunk runs or tiers")
+    timing["host"] = timing_summary("host", out_h["times"]["host"])
+    del host, out_h
+    torch.cuda.empty_cache()
+
+    check_f8_storage(loader)
+    torch.cuda.empty_cache()
+    check_int8_fill(loader, qg, counters)
+    torch.cuda.empty_cache()
+    check_disk_tier(loader, str(root / "store"))
+    check_evaluate(trainer, out["state"], valid)
+    log(f"cached training ({card()}): peak device memory {peak:.3f} GiB, decode {clips / secs:.1f} clips/s, "
+        + ", ".join(f"{k} {v['median']:.2f} ms ({CACHE_CLIPS / v['median'] * 1e3:.1f} clips/s)"
+                    for k, v in timing.items()))
+    return launches
+
+
+# Phase 11: the generation workflow from the command line (core/config.py, cli/, train/checkpoint.py,
+# Trainer.fit/test, evaluation/)
+
+WORKFLOW_CLIPS = 64  # --batch_size: the JAX bench's step batch
+# The mid-epoch resume against the uninterrupted run of the same seed, bf16
+# on the card: the same batches, noise and steps, but the conv_chain weight
+# grad sums with f32 atomics in another order each run, which Adam turns
+# into at most a +-lr step on entries whose gradient is at rounding-noise
+# level. Two uninterrupted runs of the same seed measure that alone: after
+# four steps generator.dense.weight's update differed by 1.73e-2 in L2
+# between them (an H100, 700 W), more than PR 8's 9.3e-4 after one step.
+# Limits: every entry within 2 lr; each trained tensor's update (final -
+# initial) within 3x the largest gap between the two uninterrupted runs in
+# L2, and no less than RESUME_UPDATE_TOL.
+RESUME_UPDATE_TOL = 2e-2
+# The test subprocess's test_accuracy.txt (6 decimals) against the same
+# test in this process, from the same checkpoint: the same kernels on the
+# same inputs; relative 1e-4, plus the file's rounding.
+TEST_MATCH_TOL = dict(rel=1e-4, abs=1e-6)
+
+
+def workflow_flags(lists: dict, root: Path, exp_name: str, *extra) -> list:
+    """``cli.main`` flags of the flagship at full width, bf16 (the CLI's
+    defaults), 64-clip batches, on the card."""
+    return ["--embedding", "1", "--mfcc", "1", "--batch_size", str(WORKFLOW_CLIPS), "--seed", str(SEED),
+            "--train_file", lists["training"], "--valid_file", lists["validation"],
+            "--test_file", lists["testing"], "--checkpoint_dir", str(root / "runs"), "--exp_name", exp_name,
+            "--device", "cuda", *extra]
+
+
+class counted:
+    """Launch counts of ``counters`` over a block: reset on entry, read on
+    exit into ``self.launches``; raises unless each of ``need`` launched."""
+
+    def __init__(self, counters: dict, what: str, need=("mfcc", "conv_chain")):
+        self.counters, self.what, self.need = counters, what, need
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        for fn in self.counters.values():
+            fn.launches = 0
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, *_):
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.launches = {k: fn.launches for k, fn in self.counters.items()}
+        if kind is None:
+            log(f"{self.what}: {self.seconds:.2f} s, launches {self.launches}")
+            missing = [k for k in self.need if not self.launches[k]]
+            if missing:
+                raise AssertionError(f"{self.what}: {missing} never launched")
+
+
+def read_run(run_dir: Path, label: str) -> list:
+    """The run's metrics.jsonl records, logged; raises unless the run's
+    files are there and the validation loss fell."""
+    for name in ("configuration.txt", "model.txt", "metrics.jsonl", "epoch_0.ckpt"):
+        if not (run_dir / name).exists():
+            raise AssertionError(f"{label}: no {name} in {run_dir}")
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    for r in records:
+        log(f"workflow {label} epoch {r['epoch']} ({card()}): {r['steps']} steps in {r['seconds']:.3f} s, "
+            f"{r['clips_per_sec']:.1f} clips/s, train loss {r['train']['loss']:.6g}, valid mse "
+            f"{r['valid']['mse']:.6g}")
+    mse = [r["valid"]["mse"] for r in records]
+    if not (all(np.isfinite(mse)) and mse[-1] < mse[0]):
+        raise AssertionError(f"{label}: validation mse {mse} did not fall")
+    return records
+
+
+class FaultyLoader:
+    """A loader whose epoch ``epoch`` raises after ``after`` batches."""
+
+    def __init__(self, loader, epoch: int, after: int):
+        self.loader, self.epoch, self.after = loader, epoch, after
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def batches(self, epoch: int = 0):
+        for i, batch in enumerate(self.loader.batches(epoch)):
+            if epoch == self.epoch and i == self.after:
+                raise OSError("shard read failed (injected)")
+            yield batch
+
+
+def workflow_trainer(lists, root, exp_name, *extra):
+    """What ``cli.main`` builds from ``workflow_flags``: the trainer of the
+    restored-or-fresh task and the training and validation loaders."""
+    from acoustic_image_generation_tpu_torch.cli.main import build_parser, config_from_args, make_loader, select_task
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    args = build_parser().parse_args(workflow_flags(lists, root, exp_name, *extra))
+    config = config_from_args(args)
+    trainer = Trainer(select_task(config, args.device), config)
+    return trainer, make_loader(config, "training"), make_loader(config, "validation")
+
+
+def update_gaps(init: dict, task, ref, lr: float) -> tuple[float, dict]:
+    """Each trained tensor's update (final - ``init``) in ``task`` against
+    ``ref``'s: the largest entry gap in lr, and per tensor the L2 gap over
+    ``ref``'s update."""
+    got = dict(task.named_parameters())
+    worst_entry, norms = 0.0, {}
+    for n, p in ref.named_parameters():
+        if n in init:
+            d_want, d_got = p.detach() - init[n], got[n].detach() - init[n]
+            gap = (d_got - d_want).float()
+            worst_entry = max(worst_entry, float(gap.abs().max()) / lr)
+            norms[n] = float(gap.norm() / d_want.float().norm().clamp_min(1e-30))
+    return worst_entry, norms
+
+
+def check_crash_and_resume(lists: dict, root: Path, counters: dict):
+    """Frozen trunk with the feature cache, two epochs of two steps: the
+    uninterrupted run, twice (their gap is what the weight grad's atomics
+    alone make); a run whose loader fails after one batch of epoch 1 (the
+    crash checkpoint and its position); that run resumed from the crash
+    checkpoint, held against the first uninterrupted run. Returns the
+    resumed trainer and state."""
+    from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+
+    frozen = ("--trunk_bn", "frozen", "--cache_trunk_features", "1", "--num_epochs", "2")
+    runs = []
+    for name in ("whole", "again"):
+        trainer, train, valid = workflow_trainer(lists, root, name, *frozen)
+        init = {n: p.detach().clone() for n, p in trainer.task.named_parameters() if p.requires_grad}
+        with counted(counters, f"workflow uninterrupted run ({name})"):
+            runs.append((trainer, trainer.fit(train, valid)))
+    (whole, want), (again, _) = runs
+    crashed, train, valid = workflow_trainer(lists, root, "crashed", *frozen)
+    try:
+        with counted(counters, "workflow run that crashes"):
+            crashed.fit(FaultyLoader(train, epoch=1, after=1), valid)
+        raise AssertionError("the injected loader fault did not reach fit's caller")
+    except OSError as e:
+        log(f"workflow crash: {e!r}")
+    path = Path(crashed.run_dir) / "epoch_interrupted_1.ckpt"
+    meta = ckpt.load_resume_meta(str(path))
+    if not path.exists() or meta != {"epoch": 1, "step_in_epoch": 1}:
+        raise AssertionError(f"crash checkpoint {path}: exists {path.exists()}, position {meta}")
+    resumed, train, valid = workflow_trainer(lists, root, "resumed", "--trunk_bn", "frozen",
+                                             "--cache_trunk_features", "1", "--num_epochs", "1")
+    t0 = time.perf_counter()
+    state = resumed.restore(str(path), resumed.init_state())
+    torch.cuda.synchronize()
+    log(f"workflow restore of the crash checkpoint on the card: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    with counted(counters, "workflow resumed run"):
+        state = resumed.fit(train, valid, state=state)
+    lr = resumed.cfg.learning_rate
+    entry, norms = update_gaps(init, resumed.task, whole.task, lr)
+    entry_again, norms_again = update_gaps(init, again.task, whole.task, lr)
+    top = sorted(norms, key=norms.get, reverse=True)[:4]
+    limit = max(RESUME_UPDATE_TOL, 3 * max(norms_again.values()))
+    log(f"check resume ({card()}): steps {state.step} vs {want.step} uninterrupted; worst update gap {entry:.3f} lr "
+        f"(uninterrupted twice: {entry_again:.3f}; tol 2); largest tensor update gaps in L2, resumed vs "
+        f"uninterrupted twice: " + ", ".join(f"{n} {norms[n]:.3e} vs {norms_again[n]:.3e}" for n in top)
+        + f" (tol {limit:.3e}: 3x the runs' gap, at least {RESUME_UPDATE_TOL})")
+    if state.step != want.step or entry > 2 or max(norms.values()) > limit:
+        raise AssertionError("the resumed run and the uninterrupted one differ")
+    del whole, again, crashed, want, runs
+    return resumed, state
+
+
+def check_checkpoint_io(trainer, state, root: Path) -> None:
+    """The resumed state written synchronously and through the background
+    writer (the time ``save`` blocks, the time ``close`` takes), restored on
+    the card and into a CPU task: the CPU task's state equal to the card's
+    to the bit."""
+    from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    out = root / "io"
+    want = ckpt.state_dict(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(str(out), "sync", state)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    saver = ckpt.AsyncCheckpointer()
+    t0 = time.perf_counter()
+    saver.save(str(out), "async", state)
+    block_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    saver.close()
+    close_ms = (time.perf_counter() - t0) * 1e3
+    size = Path(path).stat().st_size
+    if (out / "epoch_async.ckpt").read_bytes() != Path(path).read_bytes():
+        raise AssertionError("the background writer's file differs from the synchronous one")
+    t0 = time.perf_counter()
+    trainer.restore(path, trainer.init_state())
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    cpu = Trainer(GenerationTask(trainer.task.cfg, device="cpu"), trainer.config)
+    t0 = time.perf_counter()
+    cpu_state = cpu.restore(path, cpu.init_state())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = ckpt.state_dict(cpu_state)
+
+    def flat(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict) and v:
+                yield from flat(v, prefix + (k,))
+            else:
+                yield "/".join(prefix + (k,)), v
+
+    got, want = dict(flat(got)), dict(flat(want))
+    mismatched = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+    log(f"checkpoint ({card()}): {size / 2**20:.1f} MiB; synchronous write {sync_ms:.1f} ms; background writer: "
+        f"save blocks {block_ms:.1f} ms, close {close_ms:.1f} ms; restore on the card {restore_ms:.1f} ms, "
+        f"into a CPU task {cpu_ms:.1f} ms; leaves that differ on the CPU: {len(mismatched)} of {len(want)}")
+    if mismatched or got.keys() != want.keys():
+        raise AssertionError(f"the card's checkpoint restored on the CPU differs: {mismatched[:5]}")
+
+
+def workflow(counters: dict, lists: dict, root: Path) -> dict:
+    """Phase 11: the reference protocol through the port's command line at
+    full width, bf16, 64-clip batches: ``main --mode train`` (train-mode
+    trunk BN, two epochs; then the frozen trunk with the feature cache,
+    three epochs, validation from the eval cache), a crash and its
+    mid-epoch resume, the checkpoint's write and restore times and its CPU
+    restore, ``main --mode test`` as a subprocess, and the ``iou`` and
+    ``generate --energy`` tools. Every pass counts its launches. Returns the
+    launch counts summed over the passes."""
+    from acoustic_image_generation_tpu_torch.cli import main as cli
+    from acoustic_image_generation_tpu_torch.cli import tools
+    from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
+
+    total = dict.fromkeys(counters, 0)
+    passes = []
+
+    def run(what, fn) -> dict:
+        with counted(counters, what) as c:
+            fn()
+        passes.append((what, c.seconds))
+        for k, v in c.launches.items():
+            total[k] += v
+        return c.launches
+
+    # two epochs of two 64-clip steps over 128 windows, each with two validation batches
+    got = run("workflow train, trunk_bn=train",
+              lambda: cli.main(workflow_flags(lists, root, "train_bn", "--mode", "train", "--num_epochs", "2")))
+    want = dict(mfcc=4 + 4, conv_chain=12 * (4 + 4), conv_chain_backward=29 * 4)
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"train run launches {got}, expected {want}")
+    read_run(root / "runs" / "train_bn", "trunk_bn=train")
+    torch.cuda.empty_cache()
+
+    trunk = []
+    features = GenerationTask.trunk_features
+
+    def counting(self, *a, **k):
+        trunk.append(1)
+        return features(self, *a, **k)
+
+    GenerationTask.trunk_features = counting
+    try:
+        run("workflow train, frozen trunk, feature cache",
+            lambda: cli.main(workflow_flags(lists, root, "frozen", "--mode", "train", "--num_epochs", "3",
+                                            "--trunk_bn", "frozen", "--cache_trunk_features", "1")))
+    finally:
+        GenerationTask.trunk_features = features
+    log(f"workflow frozen run: {len(trunk)} trunk runs (expected 4: two training and two validation batches, "
+        "all in epoch 0)")
+    if len(trunk) != 4:
+        raise AssertionError("the frozen run's training or validation did not ride the feature cache")
+    read_run(root / "runs" / "frozen", "frozen trunk, cached")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resumed, state = check_crash_and_resume(lists, root, counters)
+    passes.append(("workflow crash and resume (four runs)", time.perf_counter() - t0))
+    check_checkpoint_io(resumed, state, root)
+    del resumed, state
+    torch.cuda.empty_cache()
+
+    run_dir = root / "runs" / "train_bn"
+    best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
+    flags = workflow_flags(lists, root, "train_bn")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "acoustic_image_generation_tpu_torch.cli.main", *flags,
+                           "--mode", "test", "--restore_checkpoint", str(best)],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    passes.append(("workflow test subprocess", time.perf_counter() - t0))
+    log(f"workflow test subprocess: exit {proc.returncode} in {passes[-1][1]:.1f} s; {proc.stdout.strip()[-400:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"main --mode test failed: {proc.stderr[-2000:]}")
+    text = (run_dir / "test_accuracy.txt").read_text()
+    written = dict(re.findall(r"(mse\d?): ([0-9.eE+-]+)", text))
+    trainer, _, _ = workflow_trainer(lists, root, "train_bn")
+    state = trainer.restore(str(best), trainer.init_state())
+    from acoustic_image_generation_tpu_torch.cli.main import make_loader
+
+    test_loader = make_loader(trainer.config, "testing")
+    here = {}
+    run("workflow test pass", lambda: here.update(trainer.test(state, test_loader)))
+    gaps = {k: abs(float(written[k]) - v) for k, v in here.items()}
+    log(f"check test subprocess against this process: {written} vs {here}")
+    if written.keys() != here.keys() or any(g > TEST_MATCH_TOL["rel"] * abs(here[k]) + TEST_MATCH_TOL["abs"]
+                                            for k, g in gaps.items()):
+        raise AssertionError("the test subprocess and this process disagree")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    iou_dir = root / "iou"
+    run("workflow tools iou", lambda: tools.main(["iou", "--out_dir", str(iou_dir), str(best), "--", *flags]))
+    names = sorted(p.name for p in iou_dir.iterdir())
+    auc = float((iou_dir / "area.txt").read_text())
+    log(f"workflow iou: AUC {auc:.6f}, files {names}")
+    if len([n for n in names if n.startswith("intersection_")]) != 11 or not 0 <= auc <= 1:
+        raise AssertionError("tools iou: wrong files or AUC")
+    gen_dir = root / "generated"
+    run("workflow tools generate --energy",
+        lambda: tools.main(["generate", "--energy", str(best), str(gen_dir), "--", *flags]))
+    images = np.load(gen_dir / "testing_generated.npy")
+    energy = np.load(gen_dir / "testing_energy.npy")
+    labels = np.load(gen_dir / "testing_labels.npy")
+    n = int(np.prod(list(CACHE_DATA.values()))) * 12
+    log(f"workflow generate: {images.shape} {images.dtype}, energy {energy.shape}, labels {labels.shape}")
+    if (images.shape != (n, 36, 48, 12) or energy.shape != (n, 36, 48) or labels.shape != (n,)
+            or not (np.isfinite(images).all() and np.isfinite(energy).all())):
+        raise AssertionError("tools generate: wrong shapes or non-finite values")
+    log(f"workflow ({card()}): " + ", ".join(f"{w} {s:.2f} s" for w, s in passes))
+    return total
 
 
 def kernels_only(group: str, package_root) -> int:
@@ -2088,9 +2454,10 @@ def kernels_only(group: str, package_root) -> int:
     return 0
 
 
-def cached_only() -> int:
-    """``--cached``: build the kernels of the cached path and run phase 10
-    alone. Prints no result line."""
+def phase_only(which: str) -> int:
+    """``--cached`` (phase 10) or ``--workflow`` (phase 11): build the
+    kernels of that path and run the phase alone on its own shards. Prints
+    no result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
@@ -2098,14 +2465,19 @@ def cached_only() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"cached training only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
+    log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
     for name, (secs, _) in build.build(("mfcc", "conv_chain", "qgemm_s8")).items():
         log(f"build {name}: {secs:.2f} s")
     counters = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
                 "qgemm_s8": qg.qgemm_s8}
-    t0 = time.perf_counter()
-    cached_training(counters, qg)
-    log(f"phase cached training: {time.perf_counter() - t0:.1f} s")
+    with scratch_dir() as root:
+        lists = write_shards(root)
+        t0 = time.perf_counter()
+        if which == "cached":
+            cached_training(counters, qg, lists, root)
+        else:
+            workflow(counters, lists, root)
+        log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -2120,6 +2492,8 @@ def main() -> int:
                       help="only build, check and time the frontends' FFT kernels (mfcc, stft)")
     only.add_argument("--cached", action="store_const", const="cached", dest="only",
                       help="only run phase 10, cached-feature training from shards")
+    only.add_argument("--workflow", action="store_const", const="workflow", dest="only",
+                      help="only run phase 11, the generation workflow from the command line")
     parser.add_argument("--package-root", default=None,
                         help="with --trunk-gemms or --frontends: import the port from this checkout "
                              "(e.g. a parent commit's)")
@@ -2128,8 +2502,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only == "cached":
-        return cached_only()
+    if args.only in ("cached", "workflow"):
+        return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
     # IEEE f32 wherever f32 is compared: no TF32 in matmuls or convolutions.
@@ -2244,17 +2618,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_embed_train_against_cpu()
     log(f"phase embedding training: {time.perf_counter() - phase:.1f} s")
-    phase = time.perf_counter()
-    cached_training(every, qg)
-    torch.cuda.empty_cache()
-    log(f"phase cached training: {time.perf_counter() - phase:.1f} s")
+    with scratch_dir() as root:
+        lists = write_shards(root)
+        phase = time.perf_counter()
+        cached_training(every, qg, lists, root)
+        torch.cuda.empty_cache()
+        log(f"phase cached training: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        flow = workflow(every, lists, root)
+        torch.cuda.empty_cache()
+        log(f"phase workflow: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["workflow_launches"] = flow[k["name"]]
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us")  # mfcc, stft: entry_times
+    # mfcc, stft: entry_times; every kernel: its launches over phase 11's passes
+    extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "workflow_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
