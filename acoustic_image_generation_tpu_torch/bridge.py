@@ -3,12 +3,16 @@
 ``load_flax(task, params, batch_stats)`` takes the trees that the JAX
 task's ``init_variables`` returns (or a checkpoint's), as nested dicts of
 numpy arrays: for ``GenerationTask`` ``params = {"resnet": ...,
-"generator": ...}``, ``batch_stats = {"resnet": ...}``; for ``EmbedTask``
+"generator": ...}``, ``batch_stats = {"resnet": ...}``; for the
+classification tasks ``params = {"dualcamnet": ...}`` (with ``"resnet"``
+and ``"generator"`` for ``GeneratedClassificationTask``), ``batch_stats``
+``{}`` (``{"resnet": ...}``); for ``EmbedTask``
 ``params = {"acoustic": ..., "audio": ..., "video": ...}``, ``batch_stats =
 {"audio": ..., "video": ...}``. Module paths of the port mirror the flax
 scopes, and the layouts change as follows:
 
-- conv kernels: HWIO -> OIHW;
+- conv kernels: HWIO -> OIHW; DualCamNet's temporal conv3d kernel
+  (12, 1, 1, C, C) DHWIO -> (C, C, 12, 1);
 - Dense kernels: (in, out) -> (out, in);
 - ``ConvTransposeTF`` kernels: HWIO -> (in, out, kh, kw), not flipped;
 - BN: ``scale``/``bias`` params, ``mean``/``var`` batch stats, under the
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch.models.blocks import ChainConv
+from acoustic_image_generation_tpu_torch.models.dualcamnet import TemporalConv
 from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, Conv2d, ConvTransposeTF, Dense
 from acoustic_image_generation_tpu_torch.models.quant import QLayer, QuantTrunk
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN
@@ -53,6 +58,16 @@ def _hwio_to_iohw(a):  # its own inverse
     return a.transpose(2, 3, 0, 1)
 
 
+def _dhwio_to_oihw(a):
+    d, h, w, ci, co = a.shape
+    return a.reshape(d, h * w, ci, co).transpose(3, 2, 0, 1)
+
+
+def _oihw_to_dhwio(a):
+    co, ci, d, hw = a.shape
+    return a.transpose(2, 3, 1, 0).reshape(d, hw, 1, ci, co)
+
+
 def _hwio_to_packed(a):
     kh, kw, ci, co = a.shape
     return a.reshape(kh * kw * ci, co)
@@ -68,6 +83,7 @@ def _same(a):
 
 _INVERSE = {
     _hwio_to_oihw: _oihw_to_hwio,
+    _dhwio_to_oihw: _oihw_to_dhwio,
     _hwio_to_iohw: _hwio_to_iohw,
     np.transpose: np.transpose,
     _hwio_to_packed: _packed_to_hwio,
@@ -98,6 +114,7 @@ def targets(task: torch.nn.Module):
         elif isinstance(m, (Conv2d, ConvTransposeTF, Dense, ChainConv)):
             fn = {
                 Conv2d: _hwio_to_oihw,
+                TemporalConv: _dhwio_to_oihw,
                 ConvTransposeTF: _hwio_to_iohw,
                 Dense: np.transpose,
                 ChainConv: _hwio_to_packed,

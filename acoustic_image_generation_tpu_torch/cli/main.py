@@ -14,10 +14,15 @@ plus ``--device`` (``cuda``, the default, or ``cpu``; without a GPU the
 default raises). The run directory, its files and its checkpoints are the
 JAX package's, so either package can test or resume the other's runs.
 
-Task dispatch: ``--embedding 1 --mfcc 1`` (the AAAI'21 generator) runs
-``GenerationTask``. Every other task raises ``NotImplementedError`` naming
-its item in ``ROADMAP.md`` Queue 1: the embedding family (item 6), the
-projection, joint, reconstruction and classification tasks (item 7).
+Task dispatch, as JAX's ``select_task``: ``--embedding 1 --mfcc 1`` (the
+AAAI'21 generator) runs ``GenerationTask``; ``--model DualCamNet`` runs
+``CorrespondenceTask`` with ``--correspondence 1``, else
+``ClassificationTask`` with ``--mfcc 1`` (real images, or the tiled MFCC
+map with ``--mfccmap 1``), else ``GeneratedClassificationTask`` (DualCamNet
+on the frozen generator's images). Every other task raises
+``NotImplementedError`` naming its item in ``ROADMAP.md`` Queue 1: the
+embedding family (item 6), the projection, joint and reconstruction tasks
+(item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from acoustic_image_generation_tpu_torch.core.config import (
     OptimConfig,
     ParallelConfig,
     RunConfig,
+    classify_config,
     generation_config,
 )
 
@@ -206,8 +212,18 @@ def select_task(config: ExperimentConfig, device: str = "cuda"):
     if m.embedding:
         raise NotImplementedError("training the embedding family from the command line waits for its "
                                   "evaluation (ROADMAP.md Queue 1, item 6)")
-    raise NotImplementedError("the reconstruction and classification tasks are not ported "
-                              "(ROADMAP.md Queue 1, item 7)")
+    if m.model == "UNet":
+        raise NotImplementedError("the reconstruction task (ReconstructTask) is not ported "
+                                  "(ROADMAP.md Queue 1, item 7)")
+    from acoustic_image_generation_tpu_torch.train import classify
+
+    if config.data.correspondence:
+        task = classify.CorrespondenceTask(classify_config(config), device=device)
+    elif m.mfcc:
+        task = classify.ClassificationTask(classify_config(config), device=device)
+    else:
+        task = classify.GeneratedClassificationTask(classify_config(config, generated=True), device=device)
+    return task.init_params(config.run.seed)
 
 
 def make_loader(config: ExperimentConfig, split: str):

@@ -5,7 +5,8 @@ The same five dataclasses with the same fields and defaults, and the same
 JSON form (``to_json``: ``indent=2``, ``sort_keys=True``), so a
 ``configuration.txt`` written by either package loads in the other.
 ``generation_config`` builds the port's ``GenerationConfig`` (the fields the
-generation task and its train step read) from an ``ExperimentConfig``.
+generation task and its train step read) from an ``ExperimentConfig``,
+``classify_config`` the classification tasks' ``ClassifyConfig``.
 
 Fields the port reads as JAX does: the data fields the loader takes
 (``datatype``, ``train_file``/``valid_file``/``test_file``, ``batch_size``,
@@ -24,6 +25,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
 
 
@@ -211,6 +213,8 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
         trunk_quant=m.trunk_quant,
         fused_qgemm=m.fused_qgemm,
         correspondence=config.data.correspondence,
+        correspondence_video=config.data.correspondence_video,
+        datatype=config.data.datatype,
         compute_dtype=config.parallel.compute_dtype,
         learning_rate=o.learning_rate,
         latent_loss=o.latent_loss,
@@ -225,4 +229,25 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
         cache_disk_dir=m.cache_disk_dir,
         cache_disk_bytes=m.cache_disk_bytes,
         cache_features_dtype=m.cache_features_dtype,
+    )
+
+
+def classify_config(config: ExperimentConfig, *, generated: bool = False) -> ClassifyConfig:
+    """The port's ``ClassifyConfig`` of an experiment (classes and channels
+    by ``data.datatype``); ``generated`` adds the frozen generator's
+    ``GenerationConfig``. Raises as ``generation_config`` does."""
+    gen = generation_config(config)  # the one-device and TF1 Adam checks
+    d = config.data
+    return ClassifyConfig(
+        num_classes=d.num_classes,
+        num_channels=d.num_channels,
+        sample_length=d.sample_length,
+        mfccmap=config.model.mfccmap,
+        datatype=d.datatype,
+        correspondence=d.correspondence,
+        correspondence_video=d.correspondence_video,
+        compute_dtype=config.parallel.compute_dtype,
+        learning_rate=config.optim.learning_rate,
+        seed=config.run.seed,
+        generation=gen if generated else None,
     )

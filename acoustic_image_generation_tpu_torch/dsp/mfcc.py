@@ -45,8 +45,9 @@ def frontend_constants() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray
 @functools.cache
 def device_constants(device: torch.device) -> tuple[torch.Tensor, ...]:
     """``frontend_constants`` as contiguous f32 tensors, uploaded once per
-    device."""
-    return tuple(torch.from_numpy(a).to(device) for a in frontend_constants())
+    device: private copies, never views of the cached numpy arrays (on the
+    CPU a view would let an in-place op on one poison every later call)."""
+    return tuple(torch.from_numpy(a).to(device, copy=True) for a in frontend_constants())
 
 
 def mfcc_from_frames(frames: torch.Tensor) -> torch.Tensor:

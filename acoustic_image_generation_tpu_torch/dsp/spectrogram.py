@@ -51,8 +51,10 @@ def _dft_bases():
 
 @functools.cache
 def device_bases(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_dft_bases`` as f32 tensors, uploaded once per device."""
-    return tuple(torch.from_numpy(a).to(device) for a in _dft_bases())
+    """``_dft_bases`` as f32 tensors, uploaded once per device: private
+    copies, never views of the cached numpy arrays (on the CPU a view would
+    let an in-place op on one poison every later call)."""
+    return tuple(torch.from_numpy(a).to(device, copy=True) for a in _dft_bases())
 
 
 def stft_magnitude(wav: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Localization evaluation: energy-mask IoU, the threshold sweep and its
-AUC (``iou.py``), and the sweep over a loader (``localize.py``)."""
+AUC (``iou.py``), and the sweep over a loader (``localize.py``); the
+real-vs-generated DualCamNet accuracy (``real_vs_generated.py``)."""
 
 from acoustic_image_generation_tpu_torch.evaluation.iou import (
     box_weighted_iou,

@@ -14,7 +14,9 @@ device, as flax's ``param_dtype=float32``; each module computes in its
 
 ``reset_parameters(generator)`` draws the JAX initializers' distributions
 from a CPU ``torch.Generator``: glorot-uniform (``tf.layers`` and
-``xavier_initializer``) with zero biases.
+``xavier_initializer``) with zero biases, or, for ``Conv2d`` and ``Dense``
+built with ``init="trunc_normal_001"`` (DualCamNet's ``models/base.py``
+layers), a normal of stddev 0.01 truncated at two stddevs, not rescaled.
 """
 
 from __future__ import annotations
@@ -42,6 +44,22 @@ def he_truncated_normal(shape, fan_in: int, generator: torch.Generator) -> torch
     return t * std
 
 
+def trunc_normal_001(shape, generator: torch.Generator) -> torch.Tensor:
+    """``tf.truncated_normal_initializer(0.0, 0.01)``: a standard normal
+    truncated to [-2, 2], times 0.01 (JAX's ``truncated_normal(0.01)``)."""
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * 0.01
+
+
+def _init_kernel(init: str, shape, fan_in: int, fan_out: int, generator: torch.Generator) -> torch.Tensor:
+    if init == "glorot":
+        return glorot_uniform(shape, fan_in, fan_out, generator)
+    if init == "trunc_normal_001":
+        return trunc_normal_001(shape, generator)
+    raise ValueError(f"unknown init {init!r}")
+
+
 def minmax_norm(x: torch.Tensor, dims) -> torch.Tensor:
     """Per-sample min-max onto [0, 1] over ``dims``. No epsilon, as in the
     reference: a constant input gives NaN."""
@@ -53,10 +71,11 @@ class Conv2d(nn.Module):
     """``tf.layers.conv2d``: XLA "SAME" or "VALID" padding, glorot init."""
 
     def __init__(self, in_ch, out_ch, kernel_size=(3, 3), stride=1, padding="SAME",
-                 *, device=None, dtype=torch.float32):
+                 *, device=None, dtype=torch.float32, init="glorot"):
         super().__init__()
         kh, kw = kernel_size
         self.dtype = dtype
+        self.init = init
         self.stride = stride
         self.padding = padding.upper()
         if self.padding not in ("SAME", "VALID"):
@@ -70,7 +89,7 @@ class Conv2d(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         o, i, kh, kw = self.weight.shape
         with torch.no_grad():
-            self.weight.copy_(glorot_uniform(self.weight.shape, i * kh * kw, o * kh * kw, generator))
+            self.weight.copy_(_init_kernel(self.init, self.weight.shape, i * kh * kw, o * kh * kw, generator))
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -144,16 +163,17 @@ class Dense(nn.Linear):
     """``tf.layers.dense``: glorot init, zero bias; f32 masters, computes in
     ``dtype``."""
 
-    def __init__(self, in_features, out_features, *, device=None, dtype=torch.float32):
+    def __init__(self, in_features, out_features, *, device=None, dtype=torch.float32, init="glorot"):
         super().__init__(in_features, out_features, device=device, dtype=torch.float32)
         self.dtype = dtype
+        self.init = init
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if generator is None:  # nn.Linear's constructor; init_params fills it
             return
         o, i = self.weight.shape
         with torch.no_grad():
-            self.weight.copy_(glorot_uniform(self.weight.shape, i, o, generator))
+            self.weight.copy_(_init_kernel(self.init, self.weight.shape, i, o, generator))
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aig_torch_kernels"
-KERNELS = ("mfcc", "conv_chain", "matmul_stats", "qgemm_s8", "stft")
+KERNELS = ("mfcc", "conv_chain", "matmul_stats", "qgemm_s8", "stft", "sosfilt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -99,9 +99,9 @@ def sm_count(device) -> int:
 
 @functools.cache
 def device_tables(kernel_tables, device: torch.device) -> tuple[tuple[torch.Tensor, ...], tuple[int, ...]]:
-    """The arrays ``kernel_tables()`` returns, uploaded to ``device`` once,
-    in order, with their pointers."""
-    tables = tuple(torch.from_numpy(a).to(device) for a in kernel_tables().values())
+    """The arrays ``kernel_tables()`` returns, copied to ``device`` once, in
+    order, with their pointers."""
+    tables = tuple(torch.from_numpy(a).to(device, copy=True) for a in kernel_tables().values())
     return tables, tuple(t.data_ptr() for t in tables)
 
 

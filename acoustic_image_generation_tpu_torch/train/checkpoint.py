@@ -7,7 +7,8 @@ same run layout (``{checkpoint_dir}/{exp_name}/``: ``epoch_{name}.ckpt``,
 An ``epoch_{name}.ckpt`` holds the MessagePack (``core/msgpack.py``) of the
 state dict of JAX's ``TrainState``, in its key order: ``step`` (int32),
 ``params`` and ``batch_stats`` (``bridge.to_flax``'s trees, f32), and
-``opt_state``, laid out as ``optax.multi_transform`` over ``adam_tf1``::
+``opt_state``. For a task with ``param_labels`` (generation, the generated
+classifier) it is laid out as ``optax.multi_transform`` over ``adam_tf1``::
 
     {"inner_states": {"frozen": {"inner_state": {}},
                       "train": {"inner_state": {"0": {"count": int32, "mu": tree, "nu": tree},
@@ -15,7 +16,12 @@ state dict of JAX's ``TrainState``, in its key order: ``step`` (int32),
 
 ``mu`` and ``nu`` follow the parameter tree, where a frozen subtree is
 one ``{}`` (optax's ``MaskedNode``) at the level of JAX's labels: the
-shallowest that holds no trained tensor (``resnet/block1_unit_1``). So
+shallowest that holds no trained tensor (``resnet/block1_unit_1``, or
+``resnet`` and ``generator`` whole for the generated classifier). A task
+without labels (the classification and correspondence tasks, where every
+parameter trains) has ``adam_tf1``'s chain state alone,
+``{"0": {"count", "mu", "nu"}, "1": {}}``, as JAX's trainer builds no
+``multi_transform`` for it. So
 the JAX package restores a checkpoint the port wrote, and the port one that
 JAX wrote. ``TF1Adam`` keeps a step per tensor; the file's single ``count``
 is that step, which the port's ``TrainState.step`` equals. A state whose
@@ -80,7 +86,8 @@ def _collect(state: TrainState, copy: bool) -> dict:
             else:
                 zeros = torch.zeros_like(tensor)
                 slots.append((path, fn, zeros, zeros))
-    return {"step": state.step, "count": count, "leaves": leaves, "slots": slots}
+    return {"step": state.step, "count": count, "leaves": leaves, "slots": slots,
+            "labelled": hasattr(state.task, "param_labels")}
 
 
 def _host(fn, tensor) -> np.ndarray:
@@ -119,8 +126,9 @@ def _state_dict(collected: dict) -> dict:
             _put(mu, path, _host(fn, m))
             _put(nu, path, _host(fn, v))
     adam = {"count": np.asarray(collected["count"], np.int32), "mu": _sorted(mu), "nu": _sorted(nu)}
-    opt_state = {"inner_states": {"frozen": {"inner_state": {}},
-                                  "train": {"inner_state": {"0": adam, "1": {}}}}}
+    opt_state = {"0": adam, "1": {}}
+    if collected["labelled"]:
+        opt_state = {"inner_states": {"frozen": {"inner_state": {}}, "train": {"inner_state": opt_state}}}
     return {"step": np.asarray(collected["step"], np.int32), "params": _sorted(trees["params"]),
             "batch_stats": _sorted(trees["batch_stats"]), "opt_state": opt_state}
 
@@ -213,7 +221,10 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     slots and step, and the step. In place; returns ``template``."""
     sd = read_state_dict(path)
     bridge.load_flax(template.task, sd["params"], sd["batch_stats"])
-    adam = sd["opt_state"]["inner_states"]["train"]["inner_state"]["0"]
+    opt_state = sd["opt_state"]
+    if "inner_states" in opt_state:
+        opt_state = opt_state["inner_states"]["train"]["inner_state"]
+    adam = opt_state["0"]
     step, count = int(sd["step"]), int(adam["count"])
     if count != step:
         raise ValueError(f"{path}: optimizer count {count} differs from step {step}; the port keeps one count")

@@ -67,7 +67,8 @@ class GenerationConfig:
     """The fields of the JAX ``ExperimentConfig`` that serving and the train
     step read: ``model.num_skip_conn``, ``model.ae``, ``model.resnet_units``,
     ``model.trunk_bn``, ``model.trunk_quant``, ``model.fused_qgemm``,
-    ``data.correspondence``, ``parallel.compute_dtype``, ``optim.learning_rate``,
+    ``data.correspondence``, ``data.correspondence_video``,
+    ``data.datatype``, ``parallel.compute_dtype``, ``optim.learning_rate``,
     ``optim.latent_loss``, ``optim.mse``, ``optim.huber``, ``optim.bce``,
     ``optim.resnet_weight_decay``, ``run.seed`` and the feature cache's
     ``model.cache_*`` fields, with JAX's defaults
@@ -80,7 +81,9 @@ class GenerationConfig:
     trunk_bn: str = "train"  # train | frozen: trunk BN on batch or running statistics
     trunk_quant: str = "none"  # none | int8: the frozen trunk as a BN-folded W8A8 program
     fused_qgemm: bool = False  # int8: every 1x1 trunk conv on the qgemm_s8 kernel
-    correspondence: bool = False  # the correspondence augmentation: not ported, raises
+    correspondence: bool = False  # the trainer doubles each batch (data/preprocess.py)
+    correspondence_video: bool = False  # ... zeroing the second half's video, not the silence map
+    datatype: str = "outdoor"  # music: the shuffled-pair correspondence
     compute_dtype: str = "bfloat16"
     learning_rate: float = 1e-4
     latent_loss: float = 1e-6
@@ -113,8 +116,6 @@ class GenerationTask(nn.Module):
             raise ValueError(f"unknown trunk_quant {config.trunk_quant!r}")
         if config.trunk_quant == "int8" and config.trunk_bn != "frozen":
             raise ValueError('trunk_quant="int8" requires trunk_bn="frozen"')
-        if config.correspondence:
-            raise NotImplementedError("the correspondence augmentation is not ported")
         self.cfg = config
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.compute_dtype]

@@ -1,5 +1,6 @@
-"""The train step, for the generation task or the embedding task, and the
-generation task's evaluation, epoch loop, test and checkpoints.
+"""The train step, for the generation, embedding and classification tasks,
+and the generation and classification tasks' evaluation, epoch loop, test
+and checkpoints.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
 (``__init__``, ``init_state``, ``_prepare``, ``_step_core``, the cached
@@ -9,9 +10,21 @@ step variants, ``_eval_step_impl``, ``evaluate`` and
 forward and loss -> backward -> TF1 Adam on the trainable parameters. JAX
 runs it as one jitted program; here it runs eagerly on the task's device and
 updates the state in place, the BN running averages of train-mode BNs
-included. A task whose ``reads_mfcc`` is false (``EmbedTask``) gets batches
-without the MFCC frontend (JAX's jit drops it as dead code); ``eval_step``
-and ``evaluate`` are the generation task's only.
+included. A task whose ``reads_mfcc`` is false (``EmbedTask``,
+``ClassificationTask`` on real images) gets batches without the MFCC
+frontend, one whose ``reads_video`` is false gets none of the video (JAX's
+jit drops both as dead code); ``eval_step`` and ``evaluate`` are not
+ported for the embedding task.
+
+With ``correspondence`` in the task's config the batch is doubled after
+preprocessing (``data/preprocess.py``): the low-pass branch runs (the
+``filtfilt`` kernel, then ``mfcc``), and the second half is the silence map
+(``correspondence_augment``), the zeroed video (``correspondence_video``)
+or, for the music data, the shuffled pairs (``correspondence_shuffle``,
+permutations from the step's data generator; an eval batch keeps its
+halves in order and pairs real clips only). The eval mask then covers the
+valid prefix of each half. A task's losses may be per frame (generation)
+or per clip (classification): the mask scales by the rows per clip.
 
 ``fit`` is JAX's epoch loop: ``configuration.txt``, ``metrics.jsonl``, the
 best tracker's ``model.txt``, a snapshot every 10 epochs and at every best
@@ -33,6 +46,10 @@ A batch is a ``data.pipeline.RawBatch`` or a dict of its arrays
 (``acoustic``, ``audio``, ``video``, optionally ``action``, ``location``,
 ``valid`` and ``window_ids``).
 
+``fit`` keeps the best epoch by the task's ``eval_metric``, the lowest
+(``eval_mode = "min"``, the default) or the highest (``"max"``: the
+classification tasks' accuracy).
+
 With ``trunk_quant="int8"`` the trainer folds, quantizes and calibrates the
 trunk once, from the normalized frames of the first batch it sees (train
 or eval), and every later step runs the int8 trunk (``Trainer.qtrunk``).
@@ -51,9 +68,11 @@ RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``(seed, s)`` (``step_generator``), the counterpart of
 ``core/rng.py::train_step_rngs``; ``evaluate``'s batch ``i`` draws from
 ``eval_generator`` seeded from ``(seed, "latent", i)``, the counterpart of
-``fold_in(role_key(base_key, "latent"), i)``. The two frameworks draw
-different numbers from the same seed, so tests inject the noise instead
-(``eps``, ``moddrop``).
+``fold_in(role_key(base_key, "latent"), i)``; the music shuffle's
+permutations come from ``data_generator`` (a CPU generator seeded from
+``(seed, "data", s)``, or ``(seed, "data", "eval", i)`` in ``evaluate``).
+The two frameworks draw different numbers from the same seed, so tests
+inject the noise instead (``eps``, ``moddrop``).
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig
+from acoustic_image_generation_tpu_torch.data import preprocess
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
@@ -79,6 +99,8 @@ from acoustic_image_generation_tpu_torch.train.state import TrainState
 
 RAW_KEYS = ("acoustic", "audio", "video", "action", "location", "valid", "window_ids")
 _LATENT = int.from_bytes(b"latent", "little")
+_DATA = int.from_bytes(b"data", "little")
+_EVAL = int.from_bytes(b"eval", "little")
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -94,6 +116,13 @@ def eval_generator(seed: int, index: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def data_generator(seed: int, *index: int) -> torch.Generator:
+    """The CPU generator of the correspondence shuffle: train step ``s`` is
+    ``(seed, "data", s)``, eval batch ``i`` ``(seed, "data", "eval", i)``."""
+    s = int(np.random.SeedSequence([seed, _DATA, *index]).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator().manual_seed(s)
+
+
 def as_raw(batch) -> dict:
     """A ``RawBatch`` or a dict -> the dict of its arrays the steps read."""
     if isinstance(batch, dict):
@@ -105,26 +134,30 @@ def _as_tensor(a):
     return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else torch.as_tensor(a)
 
 
-def prepare(raw: dict, device, *, compute_mfcc: bool = True) -> Batch:
+def prepare(raw: dict, device, *, compute_mfcc: bool = True, compute_video: bool = True,
+            compute_filtered: bool = False) -> Batch:
     """(B, F, ...) clips -> (B*F, ...) frames on ``device`` -> device
     preprocessing with the acoustic image. ``raw``: ``acoustic``
     (B,F,36,48,12) float32, ``audio`` (B,F,1024) int32, ``video``
     (B,F,224,298,3) uint8 BGR, and optionally ``action`` and ``location``
-    (B,) int, repeated per frame; as numpy arrays or tensors."""
+    (B,) int, repeated per frame; as numpy arrays or tensors. Without
+    ``compute_video`` the video is neither uploaded nor normalized."""
     flat = {}
     for key in ("acoustic", "audio", "video"):
+        if key == "video" and not compute_video:
+            continue
         t = _as_tensor(raw[key])
         flat[key] = t.reshape(-1, *t.shape[2:]).to(device, non_blocking=True)
     frames = flat["audio"].shape[0] // raw["audio"].shape[0]
     for key in ("action", "location"):
         if key in raw:
             flat[key] = _as_tensor(raw[key]).repeat_interleave(frames).to(device)
-    return preprocess_batch(flat["audio"], flat["video"], flat["acoustic"], flat.get("action"),
-                            flat.get("location"), compute_mfcc=compute_mfcc)
+    return preprocess_batch(flat["audio"], flat.get("video"), flat["acoustic"], flat.get("action"),
+                            flat.get("location"), compute_mfcc=compute_mfcc, compute_filtered=compute_filtered)
 
 
 class Trainer:
-    def __init__(self, task: GenerationTask | EmbedTask, config: ExperimentConfig | None = None):
+    def __init__(self, task: torch.nn.Module, config: ExperimentConfig | None = None):
         self.task = task
         self.cfg = cfg = task.cfg
         self.config = config if config is not None else ExperimentConfig()
@@ -157,10 +190,29 @@ class Trainer:
         trainable = [p for p in self.task.parameters() if p.requires_grad]
         return TrainState(step=0, task=self.task, optimizer=TF1Adam(trainable, self.cfg.learning_rate))
 
-    def _prepare(self, raw: dict) -> Batch:
-        """``prepare`` on the task's device, with the MFCC frontend if the
-        task reads it."""
-        return prepare(raw, self.device, compute_mfcc=self.task.reads_mfcc)
+    def _prepare(self, raw: dict, *, generator: torch.Generator | None = None, train: bool = True) -> Batch:
+        """``prepare`` on the task's device, with the MFCC frontend and the
+        video if the task reads them, then the correspondence augmentation
+        when the config asks for it (the music shuffle's permutations from
+        ``generator``; ``train=False`` keeps the halves in order and pairs
+        only the batch's valid clips)."""
+        corr = getattr(self.cfg, "correspondence", False)
+        music = getattr(self.cfg, "datatype", "outdoor") == "music"
+        batch = prepare(raw, self.device, compute_mfcc=self.task.reads_mfcc,
+                        compute_video=getattr(self.task, "reads_video", True),
+                        compute_filtered=corr and not music)
+        if not corr:
+            return batch
+        if music:
+            clips = raw["audio"].shape[0]
+            if generator is None:
+                raise ValueError("the music correspondence shuffle draws permutations: pass a generator")
+            valid = None if train else int(raw.get("valid", clips))
+            perms = preprocess.shuffle_permutations(clips, generator, valid_clips=valid, final_shuffle=train)
+            return preprocess.correspondence_shuffle(batch, *perms, frames=batch.audio.shape[0] // clips)
+        if self.cfg.correspondence_video:
+            return preprocess.correspondence_augment_no_video(batch)
+        return preprocess.correspondence_augment(batch)
 
     def _cached_raw(self, raw: dict) -> dict:
         """The batch for a step on cached features: the trunk does not run,
@@ -208,7 +260,7 @@ class Trainer:
         features, in the storage dtype) bypasses the trunk."""
         eps, generator = self._noise(state.step, eps)
         with no_tf32():
-            batch = self._prepare(raw)
+            batch = self._prepare(raw, generator=data_generator(self.cfg.seed, state.step))
             kw = {}
             if trunk_feat is not None:
                 kw["trunk_feat"] = trunk_feat.to(self.task.dtype)  # f8 storage back to the compute dtype
@@ -324,34 +376,39 @@ class Trainer:
         cache.attach_disk(fc.DiskFeatureStore(root, fp, max_bytes=self.cfg.cache_disk_bytes))
 
     def eval_step(self, state: TrainState, raw, *, eps=None) -> tuple[dict, torch.Tensor]:
-        """Eval of one batch through the trunk the steps use: the per-frame
-        losses of ``GenerationTask.eval_losses`` summed over the frames of
-        the first ``raw["valid"]`` clips (all clips when absent; a padded
-        remainder batch). Returns ``({name: f32 sum}, frames counted)``.
-        Without the correspondence augmentation a batch is one half. The
-        embedding task's eval step is not ported."""
+        """Eval of one batch through the trunk the steps use: the task's
+        ``eval_losses`` (per frame for generation, per clip for
+        classification) summed over the rows of the first ``raw["valid"]``
+        clips (all clips when absent; a padded remainder batch) in each half
+        of the batch (two with the correspondence augmentation). Returns
+        ``({name: f32 sum}, rows counted)``. The music correspondence's
+        pairing draws from ``(seed, "data", "eval", step)``. The embedding
+        task's eval step is not ported."""
         if isinstance(self.task, EmbedTask):
             raise NotImplementedError("Trainer.eval_step is not ported for the embedding task")
         raw = as_raw(raw)
         self._maybe_build_qtrunk(raw)
         eps, generator = self._noise(state.step, eps)
         self.trunk_runs += 1
-        return self._eval_sums(raw, eps, generator)
+        return self._eval_sums(raw, eps, generator, shuffle=data_generator(self.cfg.seed, _EVAL, state.step))
 
-    def _eval_sums(self, raw: dict, eps, generator, trunk_feat=None) -> tuple[dict, torch.Tensor]:
-        """The masked per-frame loss sums of one eval batch. Padded rows are
+    def _eval_sums(self, raw: dict, eps, generator, trunk_feat=None, shuffle=None) -> tuple[dict, torch.Tensor]:
+        """The masked loss sums of one eval batch: the rows of the valid
+        clips of each half (JAX's ``_eval_step_impl``). Padded rows are
         selected out, not multiplied by 0: their zero acoustic frames
         normalize to NaN (JAX's jitted mask multiply comes out the same)."""
         with torch.no_grad():
-            batch = self._prepare(raw)
+            batch = self._prepare(raw, generator=shuffle, train=False)
             if trunk_feat is not None:
                 trunk_feat = trunk_feat.to(self.task.dtype)
             losses, _ = self.task.eval_losses(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
                                               trunk_feat=trunk_feat)
-        n_total = batch.audio.shape[0]
+        n_total = next(iter(losses.values())).shape[0]
         clips = raw["audio"].shape[0]
         valid = int(raw.get("valid", clips))
-        keep = torch.arange(n_total, device=self.device) < valid * (n_total // clips)
+        halves = 2 if getattr(self.cfg, "correspondence", False) else 1
+        per_clip = n_total // (clips * halves)
+        keep = torch.arange(n_total, device=self.device) % (n_total // halves) < valid * per_clip
         sums = {k: torch.sum(torch.where(keep, v, 0.0)) for k, v in losses.items()}
         return sums, torch.sum(keep.float())
 
@@ -380,7 +437,7 @@ class Trainer:
         sums: dict = {}
         count = None
         cache = None
-        if use_cache and self.cfg.cache_eval_bytes > 0 and self.feature_cache is not None:
+        if use_cache and self.feature_cache is not None and self.cfg.cache_eval_bytes > 0:
             cache = self._eval_caches.get(loader)
             if cache is None:
                 cache = self._eval_caches[loader] = fc.TrunkFeatureCache(self.cfg.cache_eval_bytes)
@@ -395,7 +452,7 @@ class Trainer:
                 batch_sums, n = self._eval_sums(self._cached_raw(raw), None, generator, trunk_feat=feat)
             else:
                 self.trunk_runs += 1
-                batch_sums, n = self._eval_sums(raw, None, generator)
+                batch_sums, n = self._eval_sums(raw, None, generator, shuffle=data_generator(self.cfg.seed, _EVAL, i))
             for k, v in batch_sums.items():
                 sums[k] = v if k not in sums else sums[k] + v
             count = n if count is None else count + n
@@ -427,7 +484,7 @@ class Trainer:
             from acoustic_image_generation_tpu_torch.utils.logger import Logger
 
             media_logger = Logger(os.path.join(cfg.run.tensorboard, cfg.run.exp_name))
-        tracker = ckpt.BestTracker(self.run_dir, cfg.run.exp_name, mode="min")
+        tracker = ckpt.BestTracker(self.run_dir, cfg.run.exp_name, mode=getattr(self.task, "eval_mode", "min"))
 
         start_epoch = skip_steps = 0
         if state is None:
@@ -512,7 +569,8 @@ class Trainer:
     def _log_media(self, logger, valid_loader, epoch: int) -> None:
         """Reconstruction panels of the first validation clip's first frame:
         the generated and the real acoustic image (channel means, jet) and
-        the video frame."""
+        the video frame. Nothing for a task whose eval output is not an
+        image (the classification tasks' logits)."""
         batches = valid_loader.batches(epoch)
         raw_batch = next(batches, None)
         batches.close()
@@ -520,9 +578,11 @@ class Trainer:
             return
         raw = as_raw(raw_batch)
         with torch.no_grad():
-            batch = self._prepare(raw)
+            batch = self._prepare(raw, generator=data_generator(self.cfg.seed, _EVAL, 0), train=False)
             _, aux = self.task.eval_losses(batch, generator=eval_generator(self.cfg.seed, 0, self.device))
         aux = aux.cpu().numpy()
+        if aux.ndim != 4:
+            return
         logger.log_image("valid/generated", aux[0].mean(-1), epoch, cmap="jet")
         real = batch.acoustic.cpu().numpy()
         if real.shape[1:3] == aux.shape[1:3]:

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --frontends [--package-root DIR]
     python3 chip_smoke.py --cached
     python3 chip_smoke.py --workflow
+    python3 chip_smoke.py --classify
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -12,8 +13,9 @@ PyTorch built for CUDA. It imports nothing of JAX. ``--trunk-gemms`` runs
 only phase 2's checks and times of ``matmul_stats`` and ``qgemm_s8``,
 ``--frontends`` those of ``mfcc`` and ``stft`` (of the checkout at ``DIR``,
 such as a parent commit's, with ``--package-root``), ``--cached`` phase 10
-alone, ``--workflow`` phase 11 alone; none prints a result line. Phases,
-each fatal on failure:
+alone, ``--workflow`` phase 11 alone, ``--classify`` phase 12 alone (with
+the ``sosfilt`` check); none prints a result line. Phases, each fatal on
+failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
    ``nvcc``, all at once, into ``build/aig_torch_kernels/``;
@@ -93,7 +95,21 @@ each fatal on failure:
    acoustic_image_generation_tpu_torch.cli.main``, against the same test in
    this process; ``tools iou`` (11 threshold files, the AUC) and ``tools
    generate --energy`` (shapes, finite values);
-12. print the card's name and power limit, one ``{"kernels": [...]}`` line
+12. the classification family, at full width, bf16: ``sosfilt`` (the
+   correspondence task's Butterworth filtfilt, a port-side kernel) against
+   its plain version to the bit at 768 rows and at a ragged 77, and against
+   SciPy's float64 ``sosfiltfilt``, timed beside its bounds; five 64-clip
+   steps of each task through ``Trainer.train_step`` with the launch counts
+   reset just before and read just after (DualCamNet on real images: no
+   kernel; on the tiled MFCC map: 1 ``mfcc``; correspondence on outdoor
+   data: 1 ``sosfilt`` and 1 ``mfcc``; on the frozen generator's images: 1
+   ``mfcc``, 12 ``conv_chain``, no backward, no ``matmul_stats``), first and
+   median step times, peak memory, a stage breakdown and one profiled step,
+   the loss falling and the frozen tensors bit-frozen; two f32 steps of each
+   on CUDA against the CPU; on phase 10's shards ``real_vs_generated_accuracy``,
+   ``cli.main --mode train`` of the generated classifier for two epochs (the
+   best epoch the most accurate) and ``--mode test`` on it;
+13. print the card's name and power limit, one ``{"kernels": [...]}`` line
    (each kernel's launches also over phase 11's passes, ``workflow_launches``),
    and last ``{"ok": true, "device": {...}}``.
 
@@ -2414,6 +2430,336 @@ def workflow(counters: dict, lists: dict, root: Path) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 12
+
+FILTFILT_ROWS = TRAIN_FRAMES  # a 64-clip correspondence step's frames
+FILTFILT_RAGGED = 77  # a row count that leaves the last block partly empty
+# the kernel against SciPy's float64 sosfiltfilt, over the peak: twice the
+# JAX package's own f32 gap (8.2e-5 over 16 int16-range frames, seed 0),
+# as tests/test_torch_iir.py holds the plain version
+FILTFILT_F64_TOL = 2 * 8.2e-5
+CLASSIFY_TASKS = ("real", "mfccmap", "correspondence", "generated")
+# launches of one step of each task: the correspondence batch's raw audio
+# is not read (DualCamNet sees the acoustic image), so its one mfcc launch
+# is the filtered audio's; the generated task's generator runs frozen, in
+# eval mode: 12 forward conv_chain launches and no backward
+CLASSIFY_PER_STEP = {
+    "real": dict(mfcc=0, sosfilt=0, conv_chain=0, conv_chain_backward=0, matmul_stats=0),
+    "mfccmap": dict(mfcc=1, sosfilt=0, conv_chain=0, conv_chain_backward=0, matmul_stats=0),
+    "correspondence": dict(mfcc=1, sosfilt=1, conv_chain=0, conv_chain_backward=0, matmul_stats=0),
+    "generated": dict(mfcc=1, sosfilt=0, conv_chain=12, conv_chain_backward=0, matmul_stats=0),
+}
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi gives it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def check_sosfilt(sf) -> dict:
+    """The ``filtfilt`` kernel (``csrc/sosfilt.cu``) against its plain
+    version, to the bit, at a correspondence step's 768 rows of 1024 and at
+    a ragged row count, and against SciPy's float64 ``sosfiltfilt``; times of
+    kernel and plain version (no PyTorch call computes an IIR filter) beside
+    the bounds: the bytes (each row read once and written once), the
+    operations at the f32 peak, and the recurrence's dependency chain at the
+    card's maximum SM clock (2 passes x 1090 steps x 5 sections x a
+    dependent multiply and add of about 4 cycles each)."""
+    import scipy.signal as sps
+
+    from acoustic_image_generation_tpu_torch.dsp import iir
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    sos64, _ = iir._default_sos(iir.SAMPLE_RATE, iir.DEFAULT_CUTOFF_HZ, iir.DEFAULT_ORDER)
+    for rows in (FILTFILT_ROWS, FILTFILT_RAGGED):
+        x = torch.randint(-(2**15), 2**15, (rows, 1024), generator=g, device="cuda").float()
+        got = sf.filtfilt(x)
+        t0 = time.perf_counter()
+        want = sf.filtfilt_plain(x)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        witness = torch.from_numpy(np.ascontiguousarray(sps.sosfiltfilt(sos64, x.double().cpu().numpy(), axis=-1)))
+        f64 = rel_err(got.cpu(), witness)
+        same = torch.equal(got, want)
+        log(f"check sosfilt {tuple(x.shape)}: kernel vs plain bit-equal {same} (max abs "
+            f"{abs_err(got, want):.3e}); against float64 sosfiltfilt {f64:.3e} of the peak (tol "
+            f"{FILTFILT_F64_TOL:.3e}), plain {rel_err(want.cpu(), witness):.3e}; one plain call {plain_s:.2f} s")
+        if not same:
+            raise AssertionError(f"sosfilt {rows} rows: kernel differs from its plain version")
+        if not f64 <= FILTFILT_F64_TOL:
+            raise AssertionError(f"sosfilt {rows} rows: {f64:.2e} of the peak from float64")
+    x = torch.randint(-(2**15), 2**15, (FILTFILT_ROWS, 1024), generator=g, device="cuda").float()
+    ms = time_ms(lambda: sf.filtfilt(x))
+    dev = device_ms(lambda: sf.filtfilt(x), "filtfilt_kernel")
+    plain_ms = time_ms(lambda: sf.filtfilt_plain(x), iters=2, warmup=1)
+    steps = 1024 + 2 * iir.padlen()
+    nbytes = 2 * x.numel() * 4
+    flops = x.shape[0] * 2 * steps * sf.SECTIONS * 9  # 5 multiplies and 4 adds a section and step
+    b, by = bound_ms(nbytes, flops, torch.float32)
+    mhz = sm_clock_mhz()
+    chain_ms = 2 * steps * sf.SECTIONS * 2 * 4 / (mhz * 1e6) * 1e3
+    log(f"time sosfilt {tuple(x.shape)} ({card()}): kernel {ms:.4f} ms by events, {dev:.4f} ms on the device; "
+        f"plain {plain_ms:.1f} ms; bound {b:.5f} ms ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
+        f"dependency chain {chain_ms:.4f} ms at {mhz:.0f} MHz; no library call")
+    return dict(
+        name="sosfilt", route="cuda", source="acoustic_image_generation_tpu_torch/csrc/sosfilt.cu",
+        replaces="none: acoustic_image_generation_tpu/dsp/iir.py:192 (filtfilt_jax, a lax.scan)",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        device_ms=dev, chain_ms=chain_ms, clock_mhz=mhz,
+    )
+
+
+def classify_config(name: str, compute_dtype: str = "bfloat16", **over):
+    from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
+
+    kw = dict(compute_dtype=compute_dtype, seed=SEED)
+    if name == "mfccmap":
+        kw["mfccmap"] = True
+    if name == "correspondence":
+        kw["correspondence"] = True
+    if name == "generated":
+        kw["generation"] = GenerationConfig(compute_dtype=compute_dtype, seed=SEED)
+    return ClassifyConfig(**kw, **over)
+
+
+def classify_task(name: str, device: str, compute_dtype: str = "bfloat16", **over):
+    """A full-width task of the classification family with ``init_params``'
+    distributions from the seed (the generated task's ResNet50 3/4/6/3 and
+    UNetAcResNet included)."""
+    from acoustic_image_generation_tpu_torch.train import classify
+
+    cls = {"real": classify.ClassificationTask, "mfccmap": classify.ClassificationTask,
+           "correspondence": classify.CorrespondenceTask, "generated": classify.GeneratedClassificationTask}[name]
+    return cls(classify_config(name, compute_dtype, **over), device=device).init_params(SEED)
+
+
+def classify_batch(rng, clips):
+    """Raw clips with their labels: 10 outdoor classes, 61 locations."""
+    raw = train_batch(rng, clips)
+    raw["action"] = rng.integers(0, 10, clips).astype(np.int32)
+    raw["location"] = rng.integers(0, 61, clips).astype(np.int32)
+    return raw
+
+
+def classify_stages(trainer, state, raw, label) -> dict:
+    """Device time of each stage of one classification train step, by CUDA
+    events: the same calls as ``Trainer.train_step``, split where the events
+    go (the generated task's trunk and generator apart)."""
+    from acoustic_image_generation_tpu_torch.losses.classify import softmax_cross_entropy
+    from acoustic_image_generation_tpu_torch.train.generation import no_tf32
+    from acoustic_image_generation_tpu_torch.train.trainer import data_generator, step_generator
+
+    task = trainer.task
+    names = ("prepare", "trunk", "generator", "dualcamnet forward", "loss", "backward", "optimizer")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    generated = hasattr(task, "generation")
+    with no_tf32():
+        torch.cuda.synchronize()
+        ev[0].record()
+        batch = trainer._prepare(raw, generator=data_generator(SEED, state.step))
+        ev[1].record()
+        with torch.no_grad():
+            feat = task.resnet(batch.video, mode="trunk") if generated else None
+            ev[2].record()
+            if generated:
+                images = task.generation._forward(batch.mfcc, None, trunk_feat=feat,
+                                                  generator=step_generator(SEED, state.step, "cuda")).output.float()
+            else:
+                images = task.inputs(batch)
+        ev[3].record()
+        logits = task.logits(images)
+        ev[4].record()
+        total = softmax_cross_entropy(task.labels(batch), logits)
+        ev[5].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        ev[6].record()
+        state.optimizer.step()
+        ev[7].record()
+        torch.cuda.synchronize()
+    state.step += 1
+    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    log(f"stages of one classification step {label} (device ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f", total {ev[0].elapsed_time(ev[-1]):.3f}")
+    return parts
+
+
+def train_classify(name: str, counters: dict) -> dict:
+    """TRAIN_STEPS full-width bf16 steps of the task ``name`` on one fixed
+    batch of TRAIN_CLIPS clips through ``Trainer.train_step``, the launch
+    counts reset just before and read just after and held to
+    CLASSIFY_PER_STEP. Checks: the loss falls, every DualCamNet tensor
+    moves, the generated task's trunk, generator and BN statistics stay
+    bit-frozen. Then a stage breakdown and one profiled step. Returns the
+    launch counts."""
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    task = classify_task(name, "cuda")
+    trainer = Trainer(task)
+    state = trainer.init_state()
+    raw = classify_batch(np.random.default_rng(SEED + 31), TRAIN_CLIPS)
+    before = {n: t.detach().clone() for n, t in [*task.named_parameters(), *task.named_buffers()]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, raw)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+        log(f"classify {name} step {state.step}: {times[-1]:.1f} ms, "
+            + ", ".join(f"{k} {float(v):.6g}" for k, v in metrics.items()))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: v * TRAIN_STEPS for k, v in CLASSIFY_PER_STEP[name].items()}
+    log(f"classify {name}: launches over {TRAIN_STEPS} steps {launches} (expected {want})")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"classify {name}: launches {launches}, expected {want}")
+    steady = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"classify {name} ({card()}): {TRAIN_CLIPS} clips x 12 frames a step, first step {times[0]:.1f} ms, "
+        f"median of the next {TRAIN_STEPS - 1} {steady:.1f} ms, {TRAIN_CLIPS / steady * 1e3:.1f} clips/s, "
+        f"peak device memory {peak:.3f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"classify {name} losses {losses}: not finite or not lower after the last step")
+    moved, frozen_moved = 0, []
+    for n, t in [*task.named_parameters(), *task.named_buffers()]:
+        same = torch.equal(t.detach(), before[n])
+        if n.startswith("dualcamnet."):
+            if same:
+                raise AssertionError(f"classify {name}: DualCamNet tensor {n} did not change")
+            moved += 1
+        elif not same:
+            frozen_moved.append(n)
+    if frozen_moved:
+        raise AssertionError(f"classify {name}: frozen tensors changed: {frozen_moved[:3]}")
+    log(f"classify {name} checks: losses {losses[0]:.6g} -> {losses[-1]:.6g}, {moved} DualCamNet tensors "
+        f"changed, {len(before) - moved} frozen tensors bit-frozen, Adam slots for {len(state.optimizer.state)}")
+    classify_stages(trainer, state, raw, name)
+    profile(lambda: trainer.train_step(state, raw), f"classification step {name}")
+    return launches
+
+
+def check_classify_against_cpu(name: str) -> None:
+    """Two f32 steps of one 12-frame clip on CUDA (kernels) and on the CPU
+    (plain versions), from the same weights and non-zero biases; the
+    generated task with the same VAE noise. Held as phase 6 holds the
+    generation step: losses within 1e-4 relative; every DualCamNet entry's
+    update within 2 lr of the CPU's, each tensor's within 10% in L2; the
+    frozen tensors bit-frozen. The correspondence task takes the zeroed-video
+    variant here: on the silence map the kernel's float64 MFCC of low-passed
+    audio and the plain f32 one differ in the upper mel bands, which hold
+    rounding noise (tests/test_torch_mfcc.py); its filtfilt is held to the
+    bit above."""
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    raw = classify_batch(np.random.default_rng(SEED + 33), 1)
+    eps = np.random.default_rng(SEED + 34).standard_normal((2, 12, 150)).astype(np.float32)
+    over = {"correspondence_video": True} if name == "correspondence" else {}
+    runs = []
+    for dev in ("cuda", "cpu"):
+        task = classify_task(name, dev, "float32", **over)
+        randomize_biases(task, SEED + 35)
+        init = {n: p.detach().cpu().clone() for n, p in task.named_parameters()}
+        trainer = Trainer(task)
+        state = trainer.init_state()
+        losses = [float(trainer.train_step(state, raw, eps=e)[1]["loss"]) for e in eps]
+        runs.append((losses, {n: p.detach().cpu() for n, p in task.named_parameters()}))
+    (l_cuda, p_cuda), (l_cpu, p_cpu) = runs
+    lr = task.cfg.learning_rate
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_cuda, l_cpu))
+    worst_entry = worst_norm = 0.0
+    for n, want in p_cpu.items():
+        if not n.startswith("dualcamnet."):
+            if not (torch.equal(p_cuda[n], init[n]) and torch.equal(want, init[n])):
+                raise AssertionError(f"classify {name}: frozen parameter {n} changed")
+            continue
+        d_cuda, d_cpu = p_cuda[n] - init[n], want - init[n]
+        gap = (d_cuda - d_cpu).abs()
+        worst_entry = max(worst_entry, float(gap.max()) / lr)
+        worst_norm = max(worst_norm, float(gap.norm() / d_cpu.norm().clamp_min(1e-30)))
+    log(f"check classify {name} f32 cuda vs cpu (12 frames, 2 steps): losses {l_cuda} vs {l_cpu}, relative "
+        f"error {loss_err:.2e} (tol 1e-4); worst update gap {worst_entry:.3f} lr (tol 2), worst tensor "
+        f"update gap {worst_norm:.3e} in L2 (tol 0.1)")
+    if not (loss_err <= 1e-4 and worst_entry <= 2 and worst_norm <= 0.1):
+        raise AssertionError(f"classify {name}: CUDA and CPU train steps differ")
+
+
+def classify_flags(lists: dict, root: Path, exp_name: str, *extra) -> list:
+    """``cli.main`` flags of the generated classifier at full width, bf16,
+    64-clip batches, on the card."""
+    return ["--model", "DualCamNet", "--batch_size", str(WORKFLOW_CLIPS), "--seed", str(SEED),
+            "--train_file", lists["training"], "--valid_file", lists["validation"],
+            "--test_file", lists["testing"], "--checkpoint_dir", str(root / "runs"), "--exp_name", exp_name,
+            "--device", "cuda", *extra]
+
+
+def classification(counters: dict, lists: dict, root: Path) -> dict:
+    """Phase 12: the classification family at full width, bf16, on the
+    card. Five 64-clip steps of each task with launch counts, stage times
+    and a profile; two f32 steps of each on CUDA against the CPU; on phase
+    10's shards (class-dependent tones, 8 classes) the real-vs-generated
+    accuracy, ``cli.main --mode train`` of the generated classifier for two
+    epochs (the best epoch by validation accuracy) and ``--mode test`` on
+    it. Returns the correspondence steps' launch counts (the path that runs
+    ``sosfilt``)."""
+    from acoustic_image_generation_tpu_torch.cli import main as cli
+    from acoustic_image_generation_tpu_torch.cli.main import make_loader
+    from acoustic_image_generation_tpu_torch.evaluation.real_vs_generated import real_vs_generated_accuracy
+    from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    launches = {}
+    for name in CLASSIFY_TASKS:
+        launches[name] = train_classify(name, counters)
+        torch.cuda.empty_cache()
+    for name in CLASSIFY_TASKS:
+        check_classify_against_cpu(name)
+    torch.cuda.empty_cache()
+
+    gen = GenerationTask(GenerationConfig(seed=SEED), device="cuda").init_params(SEED)
+    cls = classify_task("real", "cuda")
+    config = cli.config_from_args(cli.build_parser().parse_args(classify_flags(lists, root, "rvg")))
+    with counted(counters, "real vs generated accuracy") as c:
+        acc = real_vs_generated_accuracy(gen, cls, make_loader(config, "testing"), seed=SEED)
+    log(f"real vs generated accuracy ({card()}): {acc} in {c.seconds:.2f} s")
+    if not (acc["n"] == int(np.prod(list(CACHE_DATA.values())))
+            and 0 <= acc["real_accuracy"] <= 1 and 0 <= acc["generated_accuracy"] <= 1):
+        raise AssertionError(f"real_vs_generated_accuracy: {acc}")
+    del gen, cls
+    torch.cuda.empty_cache()
+
+    # the generated classifier from the command line: two epochs of two
+    # 64-clip steps, two validation batches each
+    with counted(counters, "classify train, generated") as c:
+        cli.main(classify_flags(lists, root, "generated", "--mode", "train", "--num_epochs", "2"))
+    want = dict(mfcc=4 + 4, conv_chain=12 * (4 + 4), conv_chain_backward=0, sosfilt=0)
+    if {k: c.launches[k] for k in want} != want:
+        raise AssertionError(f"classify train launches {c.launches}, expected {want}")
+    run_dir = root / "runs" / "generated"
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    for r in records:
+        log(f"classify train epoch {r['epoch']} ({card()}): {r['steps']} steps in {r['seconds']:.3f} s, "
+            f"{r['clips_per_sec']:.1f} clips/s, train loss {r['train']['loss']:.6g}, valid accuracy "
+            f"{r['valid']['accuracy']:.4f}, cross-entropy {r['valid']['cross_loss']:.6g}")
+    accs = [r["valid"]["accuracy"] for r in records]
+    best = BestTracker.read_best_epoch(str(run_dir))
+    if best != max(range(len(accs)), key=lambda e: (accs[e], e)):  # ">=": a tie goes to the later epoch
+        raise AssertionError(f"classify train: best epoch {best} is not the most accurate of {accs}")
+    ckpt_path = run_dir / f"epoch_{best}.ckpt"
+    with counted(counters, "classify test, generated") as c:
+        cli.main(classify_flags(lists, root, "generated", "--mode", "test", "--restore_checkpoint", str(ckpt_path)))
+    text = (run_dir / "test_accuracy.txt").read_text()
+    log(f"classify test: {text.strip()}; checkpoint {ckpt_path.stat().st_size / 2**20:.1f} MiB")
+    if "accuracy" not in text or "cross_loss" not in text:
+        raise AssertionError("classify test: no accuracy written")
+    return launches["correspondence"]
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -2455,28 +2801,37 @@ def kernels_only(group: str, package_root) -> int:
 
 
 def phase_only(which: str) -> int:
-    """``--cached`` (phase 10) or ``--workflow`` (phase 11): build the
-    kernels of that path and run the phase alone on its own shards. Prints
-    no result line."""
+    """``--cached`` (phase 10), ``--workflow`` (phase 11) or ``--classify``
+    (phase 12, after the ``sosfilt`` check): build the kernels of that path
+    and run the phase alone on its own shards. Prints no result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
+    from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
     from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+    from acoustic_image_generation_tpu_torch.ops import sosfilt as sf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
-    for name, (secs, _) in build.build(("mfcc", "conv_chain", "qgemm_s8")).items():
+    names = ("mfcc", "conv_chain", "sosfilt") if which == "classify" else ("mfcc", "conv_chain", "qgemm_s8")
+    for name, (secs, text) in build.build(names).items():
         log(f"build {name}: {secs:.2f} s")
+        for fn, regs in re.findall(r"entry function '(\w+)'.*?(Used \d+ registers[^\n]*)", text, re.S):
+            log(f"  {fn}: {regs}")
     counters = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
-                "qgemm_s8": qg.qgemm_s8}
+                "qgemm_s8": qg.qgemm_s8, "matmul_stats": cs.matmul_stats, "sosfilt": sf.filtfilt}
+    if which == "classify":
+        log(json.dumps({"sosfilt": check_sosfilt(sf)}))
     with scratch_dir() as root:
         lists = write_shards(root)
         t0 = time.perf_counter()
         if which == "cached":
             cached_training(counters, qg, lists, root)
-        else:
+        elif which == "workflow":
             workflow(counters, lists, root)
+        else:
+            classification(counters, lists, root)
         log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -2494,6 +2849,8 @@ def main() -> int:
                       help="only run phase 10, cached-feature training from shards")
     only.add_argument("--workflow", action="store_const", const="workflow", dest="only",
                       help="only run phase 11, the generation workflow from the command line")
+    only.add_argument("--classify", action="store_const", const="classify", dest="only",
+                      help="only run phase 12, the classification family (with the sosfilt check)")
     parser.add_argument("--package-root", default=None,
                         help="with --trunk-gemms or --frontends: import the port from this checkout "
                              "(e.g. a parent commit's)")
@@ -2502,7 +2859,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only in ("cached", "workflow"):
+    if args.only in ("cached", "workflow", "classify"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -2515,6 +2872,7 @@ def main() -> int:
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
     from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+    from acoustic_image_generation_tpu_torch.ops import sosfilt as sf
     from acoustic_image_generation_tpu_torch.ops import stft as st
     from acoustic_image_generation_tpu_torch.serving import EmbeddingService, GenerationService
     from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
@@ -2545,7 +2903,7 @@ def main() -> int:
         check_padding(cc)
         kernels = [check_mfcc(mk), conv_chain_entry(max(err_f, err_fe), fwd, task.dtype),
                    conv_chain_backward_entry(max(err_b, err_be), bwd, task.dtype),
-                   check_matmul_stats(cs, task), check_qgemm(qg), check_stft(st)]
+                   check_matmul_stats(cs, task), check_qgemm(qg), check_stft(st), check_sosfilt(sf)]
     del acoustic
     torch.cuda.empty_cache()
 
@@ -2599,7 +2957,7 @@ def main() -> int:
 
     # the embedding family: three VAEs, stft frontend, triplet alignment
     every = {"stft": st.stft, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
-             "mfcc": mk.mfcc, "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8}
+             "mfcc": mk.mfcc, "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8, "sosfilt": sf.filtfilt}
     phase = time.perf_counter()
     task = embed_task("bfloat16", "cuda")
     service = EmbeddingService(task)
@@ -2628,6 +2986,10 @@ def main() -> int:
         flow = workflow(every, lists, root)
         torch.cuda.empty_cache()
         log(f"phase workflow: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        launches["sosfilt"] = classification(every, lists, root)["sosfilt"]
+        torch.cuda.empty_cache()
+        log(f"phase classification: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
@@ -2636,7 +2998,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # mfcc, stft: entry_times; every kernel: its launches over phase 11's passes
-    extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "workflow_launches")
+    extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
+             "workflow_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from acoustic_image_generation_tpu_torch.cli import tools
 from acoustic_image_generation_tpu_torch.data import write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
 from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
+from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,10 +69,12 @@ def test_dispatch_runs_the_generation_task_and_names_what_waits():
     assert task.generator.skips == 2 and task.cfg.ae and task.dtype == torch.float32
     waits = {("--embedding", "1"): "item 6", ("--embedding", "1", "--project", "1"): "item 7",
              ("--embedding", "1", "--mfcc", "1", "--jointmvae", "1"): "item 7",
-             ("--model", "UNet"): "item 7", ("--model", "DualCamNet", "--mfcc", "1"): "item 7"}
+             ("--model", "UNet"): "item 7"}
     for argv, item in waits.items():
         with pytest.raises(NotImplementedError, match=item):
             pmain.select_task(parse(list(argv)), "cpu")
+    # the classification family is ported (tests/test_torch_classify_cli.py)
+    assert isinstance(pmain.select_task(parse(["--model", "DualCamNet", "--mfcc", "1"]), "cpu"), ClassificationTask)
     with pytest.raises(NotImplementedError, match="item 8"):
         pmain.select_task(parse(["--embedding", "1", "--mfcc", "1", "--num_devices", "4"]), "cpu")
 

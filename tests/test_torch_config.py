@@ -61,7 +61,8 @@ def test_generation_config_of_an_experiment():
     gen = pconfig.generation_config(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, correspondence=False)))
     assert gen == GenerationConfig(
         num_skip_conn=1, ae=True, resnet_units=(1, 2, 1, 1), trunk_bn="frozen", trunk_quant="int8",
-        fused_qgemm=True, correspondence=False, compute_dtype="bfloat16", learning_rate=3e-4, latent_loss=1e-5,
+        fused_qgemm=True, correspondence=False, correspondence_video=False, datatype="music",
+        compute_dtype="bfloat16", learning_rate=3e-4, latent_loss=1e-5,
         mse=True, huber=True, bce=True, resnet_weight_decay=5e-4, seed=5, cache_trunk_features=True,
         cache_device_bytes=4 << 30, cache_eval_bytes=8 << 30, cache_disk_dir="cache", cache_disk_bytes=256 << 30,
         cache_features_dtype="bf16",

@@ -18,8 +18,10 @@ version's, on noise and on a loud tone over a quiet floor.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.signal as sps
 import torch
 
+from acoustic_image_generation_tpu.data.preprocess import normalize_mfcc as jax_normalize_mfcc
 from acoustic_image_generation_tpu.data.preprocess import preprocess_batch as jax_preprocess
 from acoustic_image_generation_tpu.dsp.energy import find_logen as jax_find_logen
 from acoustic_image_generation_tpu.dsp.mfcc import mfcc_from_frames as jax_mfcc
@@ -80,8 +82,27 @@ def test_preprocess_matches_jax():
     np.testing.assert_array_equal(batch.video.numpy(), np.asarray(want.video))
     np.testing.assert_allclose(batch.acoustic.numpy(), np.asarray(want.acoustic), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(batch.audio.numpy(), np.asarray(want.audio))
-    with pytest.raises(NotImplementedError):
-        preprocess_batch(torch.from_numpy(audio), torch.from_numpy(video), compute_filtered=True)
+    # the low-pass branch: one mfcc call over the raw and filtered audio
+    # gives the raw half unchanged; the filtered MFCC within twice JAX's own
+    # gap to a float64 witness (scipy's sosfiltfilt, then JAX's MFCC): the
+    # upper mel bands of 125 Hz low-passed audio hold rounding noise, so
+    # both f32 paths sit up to 1e-2 from the witness on the [0, 1] scale
+    both = preprocess_batch(torch.from_numpy(audio), torch.from_numpy(video), torch.from_numpy(acoustic),
+                            compute_filtered=True)
+    torch.testing.assert_close(both.mfcc, batch.mfcc, rtol=0, atol=0)
+    want_f = jax_preprocess(
+        jnp.asarray(acoustic), jnp.asarray(audio), jnp.asarray(video), zeros, zeros, compute_filtered=True,
+    )
+    sos = sps.butter(10, 125 / (0.5 * 12288), btype="low", output="sos")
+    witness = np.asarray(jax_normalize_mfcc(jax_mfcc(jnp.asarray(
+        sps.sosfiltfilt(sos, audio.astype(np.float64)).astype(np.float32)))))
+    jax_gap = np.abs(np.asarray(want_f.filtered_mfcc) - witness).max()
+    assert np.abs(both.filtered_mfcc.numpy() - witness).max() <= 2 * jax_gap
+    assert np.abs(both.filtered_mfcc.numpy() - np.asarray(want_f.filtered_mfcc)).max() <= 2 * jax_gap
+    assert batch.filtered_mfcc is None
+    skip = preprocess_batch(torch.from_numpy(audio), None, compute_filtered=True, compute_mfcc=False)
+    assert skip.mfcc is None and skip.video is None
+    torch.testing.assert_close(skip.filtered_mfcc, both.filtered_mfcc, rtol=0, atol=0)
 
 
 def test_find_logen_matches_jax_and_oracle():

@@ -225,5 +225,6 @@ def test_int8_config_checks():
         GenerationTask(GenerationConfig(resnet_units=units, trunk_quant="int8"), device="cpu")
     with pytest.raises(ValueError, match="trunk_quant"):
         GenerationTask(GenerationConfig(resnet_units=units, trunk_bn="frozen", trunk_quant="int4"), device="cpu")
-    with pytest.raises(NotImplementedError, match="correspondence"):
-        GenerationTask(GenerationConfig(resnet_units=units, correspondence=True), device="cpu")
+    # the correspondence augmentation is the trainer's: the task takes the flag
+    task = GenerationTask(GenerationConfig(resnet_units=units, correspondence=True), device="cpu")
+    assert task.cfg.correspondence

@@ -25,8 +25,9 @@ import torch.nn.functional as F
 
 from acoustic_image_generation_tpu.dsp import spectrogram as jspec
 from acoustic_image_generation_tpu.ops.pallas_stft import stft_pallas
-from acoustic_image_generation_tpu_torch.dsp import fft
+from acoustic_image_generation_tpu_torch.dsp import fft, mfcc
 from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
+from acoustic_image_generation_tpu_torch.ops import build
 from acoustic_image_generation_tpu_torch.ops import stft as stft_mod
 from fft_model import complex_table, real_split, stockham
 
@@ -52,6 +53,21 @@ def test_constants_match_jax():
     for got, want in zip(spec._dft_bases(), jspec._dft_bases()):
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
+
+
+def test_cached_tables_are_private_copies():
+    """The tensors cached per device are copies of the cached numpy tables,
+    not views: on the CPU a view would let one in-place op on a basis change
+    every later call in the process."""
+    cpu = torch.device("cpu")
+    cached = [(spec.device_bases(cpu), spec._dft_bases()),
+              (mfcc.device_constants(cpu), mfcc.frontend_constants()),
+              (build.device_tables(stft_mod.kernel_tables, cpu)[0], tuple(stft_mod.kernel_tables().values()))]
+    for tensors, arrays in cached:
+        assert len(tensors) == len(arrays)
+        for t, a in zip(tensors, arrays):
+            assert not np.shares_memory(t.numpy(), a)
+            np.testing.assert_array_equal(t.numpy(), a)
 
 
 @pytest.mark.parametrize("reference", ["stft_magnitude", "stft_pallas_interpret", "numpy_oracle"])
