@@ -15,14 +15,20 @@ default raises). The run directory, its files and its checkpoints are the
 JAX package's, so either package can test or resume the other's runs.
 
 Task dispatch, as JAX's ``select_task``: ``--embedding 1 --mfcc 1`` (the
-AAAI'21 generator) runs ``GenerationTask``; ``--model DualCamNet`` runs
-``CorrespondenceTask`` with ``--correspondence 1``, else
-``ClassificationTask`` with ``--mfcc 1`` (real images, or the tiled MFCC
-map with ``--mfccmap 1``), else ``GeneratedClassificationTask`` (DualCamNet
-on the frozen generator's images). Every other task raises
-``NotImplementedError`` naming its item in ``ROADMAP.md`` Queue 1: the
-embedding family (item 6), the projection, joint and reconstruction tasks
-(item 7).
+AAAI'21 generator) runs ``GenerationTask``; ``--embedding 1`` alone the
+embedding family's ``EmbedTask`` (its variant from ``--proxy``,
+``--fusion``, ``--moddrop``, ``--l2``; 13 acoustic channels with
+``--datatype music``); ``--model DualCamNet`` runs ``CorrespondenceTask``
+with ``--correspondence 1``, else ``ClassificationTask`` with ``--mfcc 1``
+(real images, or the tiled MFCC map with ``--mfccmap 1``), else
+``GeneratedClassificationTask`` (DualCamNet on the frozen generator's
+images). The projection, joint and reconstruction tasks raise
+``NotImplementedError`` naming their item in ``ROADMAP.md`` Queue 1 (item
+7).
+
+One flag sets a ``DataConfig`` field that JAX's parser leaves at its
+default: ``--normalize_spectrogram 1`` (the embedding task's z-normalized
+spectrograms, with the statistics of ``stats2s`` beside ``--train_file``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from acoustic_image_generation_tpu_torch.core.config import (
     ParallelConfig,
     RunConfig,
     classify_config,
+    embed_config,
     generation_config,
 )
 
@@ -89,6 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--number_of_crops", type=int, default=30)
     p.add_argument("--buffer_size", type=int, default=100)
     p.add_argument("--block_size", type=int, default=1)
+    p.add_argument("--normalize_spectrogram", type=int, default=0,
+                   help="embedding task: z-normalize the spectrograms with the statistics of stats2s "
+                        "beside --train_file")
     # optimization
     p.add_argument("--learning_rate", type=float, default=1e-4)
     p.add_argument("--num_epochs", type=int, default=100)
@@ -142,6 +152,7 @@ def config_from_args(args) -> ExperimentConfig:
             number_of_crops=args.number_of_crops,
             buffer_size=args.buffer_size,
             block_size=args.block_size,
+            normalize_spectrogram=bool(args.normalize_spectrogram),
             correspondence=bool(args.correspondence),
             host_shard=bool(args.host_shard),
         ),
@@ -210,8 +221,9 @@ def select_task(config: ExperimentConfig, device: str = "cuda"):
     if m.embedding and (m.project or m.jointmvae):
         raise NotImplementedError("the projection and joint tasks are not ported (ROADMAP.md Queue 1, item 7)")
     if m.embedding:
-        raise NotImplementedError("training the embedding family from the command line waits for its "
-                                  "evaluation (ROADMAP.md Queue 1, item 6)")
+        from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
+
+        return EmbedTask(embed_config(config), device=device).init_params(config.run.seed)
     if m.model == "UNet":
         raise NotImplementedError("the reconstruction task (ReconstructTask) is not ported "
                                   "(ROADMAP.md Queue 1, item 7)")

@@ -4,16 +4,26 @@
     python -m acoustic_image_generation_tpu_torch.cli.tools auc DIR
     python -m acoustic_image_generation_tpu_torch.cli.tools generate CHECKPOINT OUT_DIR \\
         [--set testing] [--energy] -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools export-tf1 CHECKPOINT OUT_PATH -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools extract CHECKPOINT OUT_DIR \\
+        [--set testing] [--mean] -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools knn TRAIN_DIR TEST_DIR [--set testing] [--k 15]
+    python -m acoustic_image_generation_tpu_torch.cli.tools retrieve ANCHOR_DIR GALLERY_DIR \\
+        [--set testing] [--num_classes 10]
+    python -m acoustic_image_generation_tpu_torch.cli.tools aggregate FILE... [--out OUT.json|OUT.xlsx]
 
 Counterparts of the JAX package's ``cli/tools.py`` subcommands of the same
 names, with the same files (``intersection_{t}_accuracy.txt``,
 ``area.txt``, ``{set}_generated.npy``, ``{set}_labels.npy``,
-``{set}_energy.npy``). ``<main flags>`` are ``cli.main``'s (``--device``
-included); a subcommand's own options come before its positional
-arguments. ``generate`` serves from a checkpoint; the JAX package's
-``--artifact`` branch (a StableHLO serving artifact) waits for the serving
-export (``ROADMAP.md`` Queue 1, item 8), and the other subcommands for
-their modules.
+``{set}_energy.npy``; the TF1 ``OUT_PATH.index`` and data shard;
+``{set}_{modality}_{epoch}/`` feature directories, ``{set}_knn_value.txt``,
+``{set}_retrieval.txt``). ``<main flags>`` are ``cli.main``'s (``--device``
+included); ``knn`` and ``retrieve`` take ``--device`` themselves (the
+distances run there, ``cuda`` by default). A subcommand's own options come
+before its positional arguments. ``generate`` serves from a checkpoint; the
+JAX package's ``--artifact`` branch (a StableHLO serving artifact) waits for
+the serving export (``ROADMAP.md`` Queue 1, item 8), and the other
+subcommands for their modules.
 """
 
 from __future__ import annotations
@@ -31,9 +41,10 @@ def _strip(train_flags):
     return [f for f in train_flags if f != "--"]
 
 
-def _restored(args, split: str):
-    """(config, task, trainer, loader) of a subcommand's main flags, the
-    task restored from ``args.checkpoint``."""
+def _restored(args, split: str | None):
+    """(config, task, trainer, loader, state) of a subcommand's main flags,
+    the task restored from ``args.checkpoint``; the loader of ``split``
+    (None: no loader)."""
     from acoustic_image_generation_tpu_torch.cli.main import build_parser, config_from_args, make_loader, select_task
     from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 
@@ -41,11 +52,11 @@ def _restored(args, split: str):
     config = config_from_args(main_args)
     task = select_task(config, main_args.device)
     trainer = Trainer(task, config)
-    loader = make_loader(config, split)
-    if loader is None:
+    loader = None if split is None else make_loader(config, split)
+    if split is not None and loader is None:
         raise SystemExit(f"no list file for the {split} split")
-    trainer.restore(args.checkpoint, trainer.init_state())
-    return config, task, trainer, loader
+    state = trainer.restore(args.checkpoint, trainer.init_state())
+    return config, task, trainer, loader, state
 
 
 def cmd_iou(args) -> int:
@@ -53,7 +64,7 @@ def cmd_iou(args) -> int:
     thresholds from one generator pass, and the AUC."""
     from acoustic_image_generation_tpu_torch.evaluation.localize import run_iou_sweep
 
-    config, task, trainer, loader = _restored(args, "testing")
+    config, task, trainer, loader, _ = _restored(args, "testing")
     res = run_iou_sweep(task, loader, args.out_dir or trainer.run_dir, seed=config.run.seed)
     print(json.dumps({"auc": res["auc"], "fractions": {str(k): v for k, v in res["fractions"].items()}}))
     return 0
@@ -88,7 +99,7 @@ def cmd_generate(args) -> int:
     from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
     from acoustic_image_generation_tpu_torch.train.trainer import as_raw, step_generator
 
-    config, task, trainer, loader = _restored(args, args.set)
+    config, task, trainer, loader, _ = _restored(args, args.set)
     outs, energies, labels = [], [], []
     for i, raw_batch in enumerate(loader.batches(0)):
         raw = as_raw(raw_batch)
@@ -114,6 +125,114 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_export_tf1(args) -> int:
+    """A trained checkpoint as a TF1 V2 checkpoint with the reference's
+    variable names (``core/tf1_export.py``): the generator and trunk, the
+    embedding VAEs or DualCamNet, and ``global_step``; the file restores in
+    the reference's TF1 stack and in either package's ``.ckpt`` warm
+    start."""
+    from acoustic_image_generation_tpu_torch import bridge
+    from acoustic_image_generation_tpu_torch.core.tf1_export import SCOPES, export_state
+
+    _, task, _, _, state = _restored(args, None)
+    params, stats = bridge.to_flax(task)
+    skipped = sorted(set(params) - set(SCOPES))
+    if skipped:
+        print(f"skipping non-reference model keys: {skipped}")
+    print(export_state(params, stats, args.out_path, global_step=state.step))
+    return 0
+
+
+def cmd_extract(args) -> int:
+    """Per-second latents of a trained embedding model over a split, in the
+    kNN and retrieval layout (``evaluation/export.py``): ``mean + std *
+    eps`` per modality (one ``eps`` a batch, from a generator seeded with
+    ``(0, batch)``), or the means with ``--mean``; on the task's device,
+    batch by batch."""
+    import torch
+
+    from acoustic_image_generation_tpu_torch.evaluation.export import export_features
+    from acoustic_image_generation_tpu_torch.train.trainer import as_raw, step_generator
+
+    config, task, trainer, loader, _ = _restored(args, args.set)
+    if not hasattr(task, "embeddings"):
+        raise SystemExit("extract needs an embedding task (--embedding 1 without --mfcc)")
+    feats: dict[str, list] = {}
+    labels, scenario = [], []
+    for i, raw_batch in enumerate(loader.batches(0)):
+        with torch.no_grad():
+            z = task.embeddings(trainer._prepare(as_raw(raw_batch), train=False), use_mean=args.mean,
+                                generator=step_generator(0, i, task.device))
+        n = raw_batch.valid
+        for mod, arr in z.items():
+            feats.setdefault(mod, []).append(arr[:n].cpu().numpy())
+        labels.append(raw_batch.action[:n])
+        scenario.append(raw_batch.location[:n])
+    epoch = os.path.basename(args.checkpoint).split("_")[1].split(".")[0]
+    for mod, arrs in feats.items():
+        export_features(args.out_dir, args.set, mod, epoch, np.concatenate(arrs), np.concatenate(labels),
+                        np.concatenate(scenario), config.data.num_classes, config.data.num_locations)
+    print(f"exported {sorted(feats)} to {args.out_dir}")
+    return 0
+
+
+def cmd_knn(args) -> int:
+    """15-NN accuracy of ``TEST_DIR``'s features against ``TRAIN_DIR``'s
+    training features, written to ``{set}_knn_value.txt``."""
+    from acoustic_image_generation_tpu_torch.evaluation.export import load_features
+    from acoustic_image_generation_tpu_torch.evaluation.knn import knn_accuracy
+
+    train_x, train_y, _ = load_features(args.train_dir, "training")
+    test_x, test_y, _ = load_features(args.test_dir, args.set)
+    acc = knn_accuracy(train_x, train_y, test_x, test_y, k=args.k, device=args.device)
+    with open(os.path.join(args.test_dir, f"{args.set}_knn_value.txt"), "w") as f:
+        f.write(f"{acc:6f}\n")
+    print(acc)
+    return 0
+
+
+def cmd_retrieve(args) -> int:
+    """Cross-modal ranks of ``ANCHOR_DIR``'s features against
+    ``GALLERY_DIR``'s, written to ``{set}_retrieval.txt``."""
+    from acoustic_image_generation_tpu_torch.evaluation.export import load_features
+    from acoustic_image_generation_tpu_torch.evaluation.retrieve import retrieval_ranks
+
+    anchors, a_labels, _ = load_features(args.anchor_dir, args.set)
+    gallery, g_labels, _ = load_features(args.gallery_dir, args.set)
+    res = retrieval_ranks(anchors, a_labels, gallery, g_labels, args.num_classes, device=args.device)
+    ranks = {k: v for k, v in res.items() if k.startswith("rank")}
+    with open(os.path.join(args.anchor_dir, f"{args.set}_retrieval.txt"), "w") as f:
+        f.write(json.dumps(ranks, indent=2))
+    print(json.dumps(ranks))
+    return 0
+
+
+def cmd_aggregate(args) -> int:
+    """Trimmed mean +- std over seeds of the values in ``files``: lines of
+    ``name value``, or bare values named by their file."""
+    from acoustic_image_generation_tpu_torch.evaluation.aggregate import aggregate_runs
+
+    metric_values: dict[str, list[float]] = {}
+    for path in args.files:
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                if len(parts) >= 2:
+                    try:
+                        metric_values.setdefault(parts[0], []).append(float(parts[-1]))
+                        continue
+                    except ValueError:
+                        pass
+                try:
+                    metric_values.setdefault(os.path.basename(path), []).append(float(parts[-1]))
+                except ValueError:
+                    continue
+    print(json.dumps(aggregate_runs(metric_values, args.out), indent=2, sort_keys=True))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="aig-torch-tools")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -136,6 +255,41 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--artifact", default=None, help="a serving artifact dir: not ported, raises")
     s.add_argument("train_flags", nargs=argparse.REMAINDER)
     s.set_defaults(fn=cmd_generate)
+
+    s = sub.add_parser("export-tf1", help="export a trained checkpoint as a reference TF1 .ckpt")
+    s.add_argument("checkpoint")
+    s.add_argument("out_path", help="TF checkpoint path prefix to write")
+    s.add_argument("train_flags", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_export_tf1)
+
+    s = sub.add_parser("extract", help="export latents for knn/retrieval")
+    s.add_argument("checkpoint")
+    s.add_argument("out_dir")
+    s.add_argument("--set", default="testing", choices=["training", "validation", "testing"])
+    s.add_argument("--mean", action="store_true", help="export latent means instead of sampled z")
+    s.add_argument("train_flags", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_extract)
+
+    s = sub.add_parser("knn", help="15-NN accuracy on exported latents")
+    s.add_argument("train_dir")
+    s.add_argument("test_dir")
+    s.add_argument("--set", default="testing")
+    s.add_argument("--k", type=int, default=15)
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    s.set_defaults(fn=cmd_knn)
+
+    s = sub.add_parser("retrieve", help="cross-modal rank-k retrieval")
+    s.add_argument("anchor_dir")
+    s.add_argument("gallery_dir")
+    s.add_argument("--set", default="testing")
+    s.add_argument("--num_classes", type=int, default=10)
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    s.set_defaults(fn=cmd_retrieve)
+
+    s = sub.add_parser("aggregate", help="multi-seed trimmed mean +- std")
+    s.add_argument("files", nargs="+")
+    s.add_argument("--out", default=None)
+    s.set_defaults(fn=cmd_aggregate)
     return p
 
 

@@ -6,7 +6,8 @@ JSON form (``to_json``: ``indent=2``, ``sort_keys=True``), so a
 ``configuration.txt`` written by either package loads in the other.
 ``generation_config`` builds the port's ``GenerationConfig`` (the fields the
 generation task and its train step read) from an ``ExperimentConfig``,
-``classify_config`` the classification tasks' ``ClassifyConfig``.
+``classify_config`` the classification tasks' ``ClassifyConfig``,
+``embed_config`` the embedding task's ``EmbedConfig``.
 
 Fields the port reads as JAX does: the data fields the loader takes
 (``datatype``, ``train_file``/``valid_file``/``test_file``, ``batch_size``,
@@ -22,10 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
 from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
+from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
 
 
@@ -250,4 +253,32 @@ def classify_config(config: ExperimentConfig, *, generated: bool = False) -> Cla
         learning_rate=config.optim.learning_rate,
         seed=config.run.seed,
         generation=gen if generated else None,
+    )
+
+
+def embed_config(config: ExperimentConfig) -> EmbedConfig:
+    """The port's ``EmbedConfig`` of an experiment: acoustic channels by
+    ``data.datatype`` (13 for music), ``model.num_class`` latents, the
+    variant flags, and the spectrogram statistics' directory (``data.
+    stats_dir``, else ``stats2s`` beside the training list, as JAX's
+    ``_load_spec_stats``). Raises as ``generation_config`` does."""
+    generation_config(config)  # the one-device and TF1 Adam checks
+    d, m, o = config.data, config.model, config.optim
+    stats_dir = d.stats_dir
+    if stats_dir is None and d.train_file:
+        stats_dir = os.path.join(os.path.dirname(d.train_file), "stats2s")
+    return EmbedConfig(
+        num_channels=d.num_channels,
+        latent_dim=m.num_class,
+        margin=o.margin,
+        fusion=m.fusion,
+        moddrop=m.moddrop,
+        l2=m.l2,
+        proxy=m.proxy,
+        bce=o.bce,
+        normalize_spectrogram=d.normalize_spectrogram,
+        stats_dir=stats_dir,
+        compute_dtype=config.parallel.compute_dtype,
+        learning_rate=o.learning_rate,
+        seed=config.run.seed,
     )

@@ -3,12 +3,14 @@ latent space.
 
 Counterpart of ``acoustic_image_generation_tpu/train/embed.py::EmbedTask``
 (``_inputs``, ``init_variables``, ``_forward``, ``loss``, ``eval_losses``,
-``embeddings``). The unit of embedding is one second (12 frames): the
-acoustic VAE (``UNetAcoustic``, no BN) sees the second's first acoustic
-frame, the video VAE (``UNetVideo``) its first video frame and the audio
-VAE (``UNetSound``, large) the second's 99x257 STFT magnitude
-(``ops.stft``: the CUDA kernel on the card, its plain version on the CPU),
-bilinearly resized to 193x257. The three latents share ``latent_dim``.
+``embeddings``; ``_load_spec_stats``). The unit of embedding is one
+second (12 frames): the acoustic VAE (``UNetAcoustic``, no BN) sees the
+second's first acoustic frame, the video VAE (``UNetVideo``) its first video
+frame and the audio VAE (``UNetSound``, large) the second's 99x257 STFT
+magnitude (``ops.stft``: the CUDA kernel on the card, its plain version on
+the CPU), z-normalized with the global statistics of ``stats_dir`` when
+``normalize_spectrogram`` is set (``data/stats.py``), then bilinearly
+resized to 193x257. The three latents share ``latent_dim``.
 
 The loss, with the variant chosen as in JAX: 3 x (MSE + Huber), or the
 sigmoid cross-entropy with ``bce``; + mean KL / 1e6; + L2 over the audio
@@ -38,6 +40,7 @@ import torch.nn as nn
 
 from acoustic_image_generation_tpu_torch import FRAMES_PER_SECOND, resolve_device
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch
+from acoustic_image_generation_tpu_torch.data.stats import load_stats, normalize_spectrogram
 from acoustic_image_generation_tpu_torch.dsp.spectrogram import SAMPLES_PER_SECOND, resize_frames
 from acoustic_image_generation_tpu_torch.losses.metric import nca_loss, triplet_all, triplet_hard
 from acoustic_image_generation_tpu_torch.losses.recon import huber_tf, kl_diag_gaussian, mse_tf, sigmoid_ce_logits
@@ -64,8 +67,9 @@ class EmbedConfig:
     ``optim.bce``, ``data.normalize_spectrogram``,
     ``parallel.compute_dtype``, ``optim.learning_rate`` and ``run.seed``,
     with JAX's defaults (bfloat16 is the CLI's default compute dtype).
-    ``normalize_spectrogram`` needs ``data/stats.py``, which is not ported:
-    it raises."""
+    ``stats_dir`` is where ``normalize_spectrogram`` reads the statistics
+    (``core.config.embed_config`` resolves JAX's default, ``stats2s``
+    beside the training list)."""
 
     num_channels: int = 12
     latent_dim: int = 128
@@ -76,22 +80,34 @@ class EmbedConfig:
     proxy: bool = False
     bce: bool = False
     normalize_spectrogram: bool = False
+    stats_dir: str | None = None
     compute_dtype: str = "bfloat16"
     learning_rate: float = 1e-4
     seed: int = 0
 
 
+def _load_spec_stats(config: EmbedConfig, device: torch.device):
+    """The global spectrogram statistics as f32 tensors on ``device`` when
+    ``normalize_spectrogram`` is set, else None."""
+    if not config.normalize_spectrogram:
+        return None
+    if config.stats_dir is None:
+        raise ValueError("normalize_spectrogram needs stats_dir (or a train_file beside its stats2s directory)")
+    return tuple(torch.from_numpy(a).to(device, torch.float32) for a in load_stats(config.stats_dir))
+
+
 class EmbedTask(nn.Module):
     reads_mfcc = False  # no VAE reads it: the trainer's batches skip the frontend
+    eval_metric = "mse"
+    eval_mode = "min"
 
     def __init__(self, config: EmbedConfig = EmbedConfig(), *, device=None):
         super().__init__()
         if config.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute dtype {config.compute_dtype!r}")
-        if config.normalize_spectrogram:
-            raise NotImplementedError("normalize_spectrogram needs data/stats.py, which is not ported")
         self.cfg = config
         self.device = resolve_device(device)
+        self.spec_stats = _load_spec_stats(config, self.device)
         self.dtype = _DTYPES[config.compute_dtype]
         kw = dict(device=self.device, dtype=self.dtype)
         latent = config.latent_dim
@@ -118,13 +134,15 @@ class EmbedTask(nn.Module):
     # --------------------------------------------------------------- inputs
 
     def inputs(self, batch: Batch):
-        """Per second: the first acoustic frame (S,36,48,C), the resized
-        spectrogram (S,193,257,1) f32 and the first video frame
-        (S,224,298,3)."""
+        """Per second: the first acoustic frame (S,36,48,C), the
+        (normalized) resized spectrogram (S,193,257,1) f32 and the first
+        video frame (S,224,298,3)."""
         f = FRAMES_PER_SECOND
         ac = batch.acoustic[::f]
         video = batch.video[::f]
         spec = stft(batch.audio.reshape(-1, SAMPLES_PER_SECOND))
+        if self.spec_stats is not None:
+            spec = normalize_spectrogram(spec, *self.spec_stats)
         return ac, resize_frames(spec)[..., None], video
 
     # -------------------------------------------------------------- forward
@@ -225,9 +243,12 @@ class EmbedTask(nn.Module):
 
     # ----------------------------------------------------------------- eval
 
-    def eval_losses(self, batch: Batch):
+    def eval_losses(self, batch: Batch, **unused):
         """Eval-mode forward: ``({"mse", "mse_acoustic", "mse_audio",
-        "mse_video"}: (seconds,) f32, (ac_out, au_out, vi_out))``."""
+        "mse_video"}: (seconds,) f32, (ac_out, au_out, vi_out))``. It draws
+        no noise (JAX's eval forward does not sample): the trainer's
+        ``eps``, ``generator``, ``qtrunk`` and ``trunk_feat`` mean nothing
+        here."""
         (ac, spec, video), outs = self._forward(batch, train=False)
         per = lambda x, y: torch.mean(torch.square(x.float() - y.float()), dim=tuple(range(1, x.dim())))
         mse_ac, mse_au, mse_vi = (per(x, o.output) for x, o in zip((ac, spec, video), outs))

@@ -1,6 +1,5 @@
-"""The train step, for the generation, embedding and classification tasks,
-and the generation and classification tasks' evaluation, epoch loop, test
-and checkpoints.
+"""The train step, evaluation, epoch loop, test and checkpoints, for the
+generation, embedding and classification tasks.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
 (``__init__``, ``init_state``, ``_prepare``, ``_step_core``, the cached
@@ -13,8 +12,7 @@ updates the state in place, the BN running averages of train-mode BNs
 included. A task whose ``reads_mfcc`` is false (``EmbedTask``,
 ``ClassificationTask`` on real images) gets batches without the MFCC
 frontend, one whose ``reads_video`` is false gets none of the video (JAX's
-jit drops both as dead code); ``eval_step`` and ``evaluate`` are not
-ported for the embedding task.
+jit drops both as dead code).
 
 With ``correspondence`` in the task's config the batch is doubled after
 preprocessing (``data/preprocess.py``): the low-pass branch runs (the
@@ -23,8 +21,9 @@ preprocessing (``data/preprocess.py``): the low-pass branch runs (the
 or, for the music data, the shuffled pairs (``correspondence_shuffle``,
 permutations from the step's data generator; an eval batch keeps its
 halves in order and pairs real clips only). The eval mask then covers the
-valid prefix of each half. A task's losses may be per frame (generation)
-or per clip (classification): the mask scales by the rows per clip.
+valid prefix of each half. A task's losses may be per frame (generation),
+per second (embedding) or per clip (classification): the mask scales by the
+rows per clip.
 
 ``fit`` is JAX's epoch loop: ``configuration.txt``, ``metrics.jsonl``, the
 best tracker's ``model.txt``, a snapshot every 10 epochs and at every best
@@ -92,7 +91,6 @@ from acoustic_image_generation_tpu_torch.data import preprocess
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
-from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
 from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from acoustic_image_generation_tpu_torch.train.state import TrainState
@@ -377,15 +375,13 @@ class Trainer:
 
     def eval_step(self, state: TrainState, raw, *, eps=None) -> tuple[dict, torch.Tensor]:
         """Eval of one batch through the trunk the steps use: the task's
-        ``eval_losses`` (per frame for generation, per clip for
-        classification) summed over the rows of the first ``raw["valid"]``
-        clips (all clips when absent; a padded remainder batch) in each half
-        of the batch (two with the correspondence augmentation). Returns
-        ``({name: f32 sum}, rows counted)``. The music correspondence's
-        pairing draws from ``(seed, "data", "eval", step)``. The embedding
-        task's eval step is not ported."""
-        if isinstance(self.task, EmbedTask):
-            raise NotImplementedError("Trainer.eval_step is not ported for the embedding task")
+        ``eval_losses`` (per frame for generation, per second for the
+        embedding task, per clip for classification) summed over the rows of
+        the first ``raw["valid"]`` clips (all clips when absent; a padded
+        remainder batch) in each half of the batch (two with the
+        correspondence augmentation). Returns ``({name: f32 sum}, rows
+        counted)``. The music correspondence's pairing draws from ``(seed,
+        "data", "eval", step)``."""
         raw = as_raw(raw)
         self._maybe_build_qtrunk(raw)
         eps, generator = self._noise(state.step, eps)
@@ -432,8 +428,6 @@ class Trainer:
         cache (budget ``cache_eval_bytes``), so repeated evaluations run the
         trunk once; ``use_cache=False`` skips it (a one-shot evaluation). The
         sums stay on the device until the end."""
-        if isinstance(self.task, EmbedTask):
-            raise NotImplementedError("Trainer.evaluate is not ported for the embedding task")
         sums: dict = {}
         count = None
         cache = None
@@ -472,9 +466,6 @@ class Trainer:
         task's parameters as they stand. A restored ``state`` continues the
         epoch numbering from its step, or, after ``restore`` of a crash
         checkpoint, from the batch the crash stopped at."""
-        if isinstance(self.task, EmbedTask):
-            raise NotImplementedError("fit for the embedding task waits for its evaluation "
-                                      "(ROADMAP.md Queue 1, item 6)")
         cfg = self.config
         os.makedirs(self.run_dir, exist_ok=True)
         cfg.save(os.path.join(self.run_dir, "configuration.txt"))
@@ -570,7 +561,8 @@ class Trainer:
         """Reconstruction panels of the first validation clip's first frame:
         the generated and the real acoustic image (channel means, jet) and
         the video frame. Nothing for a task whose eval output is not an
-        image (the classification tasks' logits)."""
+        image (the classification tasks' logits, the embedding task's three
+        VAE outputs)."""
         batches = valid_loader.batches(epoch)
         raw_batch = next(batches, None)
         batches.close()
@@ -580,6 +572,8 @@ class Trainer:
         with torch.no_grad():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, _EVAL, 0), train=False)
             _, aux = self.task.eval_losses(batch, generator=eval_generator(self.cfg.seed, 0, self.device))
+        if not isinstance(aux, torch.Tensor):
+            return
         aux = aux.cpu().numpy()
         if aux.ndim != 4:
             return

@@ -1,14 +1,18 @@
 """Warm starts: a fresh state initialized, whole or per model, from
 checkpoints.
 
-Counterpart of ``acoustic_image_generation_tpu/train/warmstart.py`` for
-checkpoints in the JAX package's file format (``train/checkpoint.py``):
-``init_checkpoint`` restores the parameters and BN statistics and leaves the
-optimizer's slots alone; ``visual_init_checkpoint`` (the ``resnet``),
-``acoustic_init_checkpoint`` (the ``generator``) and
-``audio_init_checkpoint`` (an ``audio`` model) overlay one model each. A
-TF1 ``.ckpt`` (one with an ``.index`` sibling) raises: importing it needs
-the ``tensorflow`` package (``ROADMAP.md`` Queue 1, item 5).
+Counterpart of ``acoustic_image_generation_tpu/train/warmstart.py``:
+``init_checkpoint`` restores the parameters and BN statistics of a
+checkpoint in the JAX package's file format (``train/checkpoint.py``) and
+leaves the optimizer's slots alone; ``visual_init_checkpoint`` (the
+``resnet`` or the embedding task's ``video``), ``acoustic_init_checkpoint``
+(the ``generator`` or ``acoustic``) and ``audio_init_checkpoint`` (``audio``)
+overlay one model each, from either format: a TF1 V2 checkpoint (detected,
+as JAX detects it, by its ``.index`` sibling) is imported under the model's
+reference scope (``core/tf1_import.py``; the ImageNet ResNet50's ``logits``
+and ``conv_map`` are skipped), anything else is read as the JAX package's
+file. A V1 file therefore reaches only ``tf1_import.import_resnet50_imagenet``,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -16,18 +20,15 @@ from __future__ import annotations
 import os
 
 from acoustic_image_generation_tpu_torch import bridge
+from acoustic_image_generation_tpu_torch.core import tf1_import
 from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig
+from acoustic_image_generation_tpu_torch.core.tf1_export import SCOPES
 from acoustic_image_generation_tpu_torch.train.checkpoint import read_state_dict
 from acoustic_image_generation_tpu_torch.train.state import TrainState
 
 
-def _read(path: str) -> dict:
-    if os.path.exists(path + ".index"):
-        raise NotImplementedError(
-            f"{path} is a TF1 checkpoint; its import needs the tensorflow package and is not ported "
-            "(ROADMAP.md Queue 1, item 5)"
-        )
-    return read_state_dict(path)
+def _is_tf_checkpoint(path: str) -> bool:
+    return os.path.exists(path + ".index")
 
 
 def _overlay(tree: dict, source: dict, where: str) -> dict:
@@ -44,23 +45,40 @@ def overlay_model(state: TrainState, model_key: str, path: str) -> TrainState:
     """Replace the parameters (and BN statistics, if any) of the model
     ``model_key`` (``resnet``, ``generator``, ...) with a checkpoint's:
     the checkpoint's ``params[model_key]`` when it has that key, else its
-    whole ``params`` tree (a checkpoint of that model alone)."""
-    restored = _read(path)
+    whole ``params`` tree (a checkpoint of that model alone). A TF1
+    checkpoint's tensors under the model's reference scope are merged over
+    the model's current values, each shape checked."""
     params, stats = bridge.to_flax(state.task)
-    src_params = restored.get("params", restored)
-    sub = src_params[model_key] if model_key in src_params else src_params
-    params[model_key] = _overlay(params[model_key], sub, model_key)
-    src_stats = restored.get("batch_stats", {})
-    if model_key in stats and model_key in src_stats:
-        stats[model_key] = _overlay(stats[model_key], src_stats[model_key], model_key)
+    if _is_tf_checkpoint(path):
+        imported_p, imported_s = tf1_import.import_scope(tf1_import.load_tf1_checkpoint(path),
+                                                         SCOPES.get(model_key, model_key))
+        if model_key == "resnet":  # the ImageNet warm start skips the new heads
+            for head in ("logits", "conv_map"):
+                imported_p.pop(head, None)
+                imported_s.pop(head, None)
+        params[model_key] = tf1_import.merge_into(params[model_key], imported_p)
+        if model_key in stats and imported_s:
+            stats[model_key] = tf1_import.merge_into(stats[model_key], imported_s)
+    else:
+        restored = read_state_dict(path)
+        src_params = restored.get("params", restored)
+        sub = src_params[model_key] if model_key in src_params else src_params
+        params[model_key] = _overlay(params[model_key], sub, model_key)
+        src_stats = restored.get("batch_stats", {})
+        if model_key in stats and model_key in src_stats:
+            stats[model_key] = _overlay(stats[model_key], src_stats[model_key], model_key)
     bridge.load_flax(state.task, params, stats)
     return state
 
 
 def restore_params_only(state: TrainState, path: str) -> TrainState:
     """The checkpoint's parameters and BN statistics; the optimizer's slots
-    and the step stay."""
-    restored = _read(path)
+    and the step stay. Only the JAX package's file format, as JAX's
+    ``restore_params_only``: a TF1 checkpoint raises."""
+    if _is_tf_checkpoint(path):
+        raise ValueError(f"{path} is a TF1 checkpoint: init_checkpoint takes the JAX package's file format; "
+                         "warm-start a model from it with visual_, acoustic_ or audio_init_checkpoint")
+    restored = read_state_dict(path)
     params, stats = bridge.to_flax(state.task)
     bridge.load_flax(state.task, _overlay(params, restored["params"], "params"),
                      _overlay(stats, restored["batch_stats"], "batch_stats"))

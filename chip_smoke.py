@@ -6,6 +6,7 @@
     python3 chip_smoke.py --cached
     python3 chip_smoke.py --workflow
     python3 chip_smoke.py --classify
+    python3 chip_smoke.py --embed-workflow
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -14,7 +15,8 @@ only phase 2's checks and times of ``matmul_stats`` and ``qgemm_s8``,
 ``--frontends`` those of ``mfcc`` and ``stft`` (of the checkout at ``DIR``,
 such as a parent commit's, with ``--package-root``), ``--cached`` phase 10
 alone, ``--workflow`` phase 11 alone, ``--classify`` phase 12 alone (with
-the ``sosfilt`` check); none prints a result line. Phases, each fatal on
+the ``sosfilt`` check), ``--embed-workflow`` phase 13 alone; none prints a
+result line. Phases, each fatal on
 failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
@@ -109,9 +111,26 @@ failure:
    on CUDA against the CPU; on phase 10's shards ``real_vs_generated_accuracy``,
    ``cli.main --mode train`` of the generated classifier for two epochs (the
    best epoch the most accurate) and ``--mode test`` on it;
-13. print the card's name and power limit, one ``{"kernels": [...]}`` line
-   (each kernel's launches also over phase 11's passes, ``workflow_launches``),
-   and last ``{"ok": true, "device": {...}}``.
+13. TF1 checkpoints and the rest of the embedding family, at full width,
+   bf16, on phase 10's shards, each pass with the launch counts reset just
+   before and read just after: a generation checkpoint through ``tools
+   export-tf1`` (numpy's reader and writer, no ``tensorflow``), read back
+   bit-equal to the state, and the trunk and generator of a fresh task
+   warm-started from the ``.ckpt`` bit-equal to it, then three 64-clip steps
+   of that task (1 ``mfcc``, 12 ``conv_chain``, 29 backward launches each,
+   the loss falling); the spectrogram statistics on the card (``stft``)
+   against the CPU path, saved as ``stats2s``; ``cli.main --mode train
+   --embedding 1 --normalize_spectrogram 1`` for two epochs of 32-clip
+   batches with validation (1 ``stft``, 8 ``conv_chain`` and 19 backward
+   launches a step, 1 and 8 a validation batch), ``--mode test`` of the best
+   epoch, ``tools extract`` of the training and testing sets, ``tools knn``
+   and ``retrieve`` with the card's distances against the CPU path's
+   (equal), ``tools aggregate``, and ``tools export-tf1`` of the embed
+   checkpoint warm-started back into a fresh ``EmbedTask``, bit-equal;
+14. print the card's name and power limit, one ``{"kernels": [...]}`` line
+   (each kernel's launches also over phase 11's passes, ``workflow_launches``,
+   and over phase 13's, ``embed_workflow_launches``), and last ``{"ok": true,
+   "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 (set in ``main``), so "f32" means IEEE f32 on both sides.
@@ -2760,6 +2779,284 @@ def classification(counters: dict, lists: dict, root: Path) -> dict:
     return launches["correspondence"]
 
 
+# ---------------------------------------------------------------- phase 13
+
+EMBED_FLOW_CLIPS = EMBED_CLIPS  # --batch_size of the embedding workflow: the JAX bench's embed batch
+TF1_STEPS = 3  # bf16 64-clip steps of the warm-started generation task
+# the spectrogram statistics on the card (the stft kernel) against the CPU
+# path (its plain version) on the same batches: the spectrograms differ by
+# at most STFT_TOL of the peak, and the sums are the same f32 numpy sums, so
+# the mean within STFT_TOL of its largest entry and the variance (the std is
+# the root of a difference of two sums, which cancels where a bin barely
+# varies) within 2 STFT_TOL of the largest second moment, plus 1e-5 for the
+# f32 sums (the CPU tests read 3.1e-7 between the plain version and JAX)
+STATS_TOL = dict(mean=STFT_TOL, var=2 * STFT_TOL + 1e-5)
+
+
+def flat_tree(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_tree(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+def same_trees(got, want) -> list:
+    """Leaves of ``want`` that ``got`` lacks or holds with other bits."""
+    got, want = dict(flat_tree(got)), dict(flat_tree(want))
+    return [k for k, v in want.items() if k not in got or got[k].tobytes() != v.tobytes()] + \
+        [k for k in got if k not in want]
+
+
+def tf1_round_trip(counters: dict, root: Path) -> dict:
+    """The main path's TF1 round trip: a full-width generation checkpoint
+    exported with ``tools export-tf1``, read back bit-equal to the state's
+    tensors, the trunk and generator of a fresh task warm-started from it
+    (``visual_init_checkpoint``, ``acoustic_init_checkpoint``) bit-equal to
+    the source, then TF1_STEPS bf16 64-clip steps of that task with launch
+    counts. Returns the steps' launches."""
+    from acoustic_image_generation_tpu_torch import bridge
+    from acoustic_image_generation_tpu_torch.cli import tools
+    from acoustic_image_generation_tpu_torch.core import config as pconfig
+    from acoustic_image_generation_tpu_torch.core import tf1_export, tf1_import
+    from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+    from acoustic_image_generation_tpu_torch.train import warmstart
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    source = Trainer(GenerationTask(GenerationConfig(seed=SEED), device="cuda").init_params(SEED))
+    state = source.init_state()
+    ckpt_path = ckpt.save_checkpoint(str(root / "tf1"), "source", state)  # the JAX package's file format
+    params, stats = bridge.to_flax(source.task)
+    out = root / "tf1" / "flagship.ckpt"
+    flags = ["--embedding", "1", "--mfcc", "1", "--seed", str(SEED), "--device", "cuda"]
+    t0 = time.perf_counter()
+    tools.main(["export-tf1", ckpt_path, str(out), "--", *flags])
+    tool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tf1_export.export_state(params, stats, str(root / "tf1" / "again.ckpt"), global_step=state.step)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = tf1_import.load_tf1_checkpoint(str(out))
+    read_ms = (time.perf_counter() - t0) * 1e3
+    want = {}
+    for key, scope in (("resnet", "resnet_v1_50"), ("generator", "UNetAcRes")):
+        want.update(tf1_export.export_scope({"params": params[key], "batch_stats": stats.get(key)}, scope,
+                                            slim=key == "resnet"))
+    want["global_step"] = np.asarray(state.step, np.int64)
+    mib = sum(p.stat().st_size for p in out.parent.glob("flagship.ckpt.*")) / 2**20
+    bad = [k for k in want if k not in got or got[k].tobytes() != want[k].tobytes()] + sorted(set(got) - set(want))
+    log(f"tf1 export ({card()}): {len(got)} tensors, {mib:.1f} MiB; tools export-tf1 {tool_s:.2f} s (task, restore, "
+        f"export), export {export_ms:.1f} ms, read {read_ms:.1f} ms; tensors that differ from the state's: {len(bad)}")
+    if bad:
+        raise AssertionError(f"the TF1 export read back differs: {bad[:5]}")
+
+    fresh = Trainer(GenerationTask(GenerationConfig(seed=SEED), device="cuda").init_params(SEED + 1))
+    fresh_state = fresh.init_state()
+    conv_map = bridge.to_flax(fresh.task)[0]["resnet"]["conv_map"]
+    run = pconfig.RunConfig(visual_init_checkpoint=str(out), acoustic_init_checkpoint=str(out))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmstart.apply_init_checkpoints(fresh_state, pconfig.ExperimentConfig(run=run))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    got_p, got_s = bridge.to_flax(fresh.task)
+    trunk = lambda tree: {k: v for k, v in tree.items() if k != "conv_map"}
+    bad = (same_trees(trunk(got_p["resnet"]), trunk(params["resnet"])) + same_trees(got_s, stats)
+           + same_trees(got_p["generator"], params["generator"]) + same_trees(got_p["resnet"]["conv_map"], conv_map))
+    log(f"tf1 warm start ({card()}): trunk and generator from the .ckpt in {warm_ms:.1f} ms (two imports of the "
+        f"file); leaves not equal to the source's (conv_map: to the fresh task's): {len(bad)}")
+    if bad:
+        raise AssertionError(f"the .ckpt warm start differs from its source: {bad[:5]}")
+    del source, state
+    raw = train_batch(np.random.default_rng(SEED + 31), TRAIN_CLIPS)
+    losses = []
+    with counted(counters, f"tf1 warm-started train, {TF1_STEPS} steps",
+                 need=("mfcc", "conv_chain", "conv_chain_backward")) as c:
+        for _ in range(TF1_STEPS):
+            t0 = time.perf_counter()
+            fresh_state, metrics = fresh.train_step(fresh_state, raw)
+            losses.append(float(metrics["loss"]))
+            log(f"tf1 warm-started step {fresh_state.step}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                f"loss {losses[-1]:.6g}")
+    want = dict(mfcc=TF1_STEPS, conv_chain=12 * TF1_STEPS, conv_chain_backward=29 * TF1_STEPS)
+    if {k: c.launches[k] for k in want} != want or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"warm-started steps: launches {c.launches} (expected {want}), losses {losses}")
+    return c.launches
+
+
+def embed_flags(lists: dict, root: Path, *extra) -> list:
+    """``cli.main`` flags of the embedding task at full width, bf16,
+    EMBED_FLOW_CLIPS-clip batches, normalized spectrograms, on the card."""
+    return ["--embedding", "1", "--batch_size", str(EMBED_FLOW_CLIPS), "--seed", str(SEED),
+            "--normalize_spectrogram", "1", "--train_file", lists["training"], "--valid_file", lists["validation"],
+            "--test_file", lists["testing"], "--checkpoint_dir", str(root / "runs"), "--exp_name", "embed",
+            "--device", "cuda", *extra]
+
+
+def check_spectrogram_stats(counters: dict, lists: dict):
+    """The statistics of the training split on the card against the CPU
+    path on the same batches, saved as ``stats2s`` beside the lists."""
+    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, stats
+
+    loader = lambda: AcousticImageDataLoader(lists["training"], "training", EMBED_FLOW_CLIPS, seed=SEED)
+    with counted(counters, "spectrogram statistics on the card", need=("stft",)) as c:
+        mean, std = stats.compute_spectrogram_stats(loader(), device="cuda")
+    t0 = time.perf_counter()
+    cpu_mean, cpu_std = stats.compute_spectrogram_stats(loader(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    second = cpu_mean.astype(np.float64) ** 2 + cpu_std.astype(np.float64) ** 2
+    mean_err = float(np.abs(mean - cpu_mean).max() / np.abs(cpu_mean).max())
+    var_err = float(np.abs(std.astype(np.float64) ** 2 - cpu_std.astype(np.float64) ** 2).max() / second.max())
+    log(f"spectrogram statistics ({card()}): {c.seconds:.2f} s on the card ({c.launches['stft']} stft launches), "
+        f"{cpu_s:.2f} s on the CPU path; mean {mean_err:.2e} of its largest (tol {STATS_TOL['mean']}), variance "
+        f"{var_err:.2e} of the largest second moment (tol {STATS_TOL['var']}); std {std.min():.4g}-{std.max():.4g}")
+    if not (mean.shape == std.shape == (99, 257) and np.isfinite(mean).all() and np.isfinite(std).all()
+            and mean_err <= STATS_TOL["mean"] and var_err <= STATS_TOL["var"]):
+        raise AssertionError("the spectrogram statistics on the card differ from the CPU path's")
+    stats.save_stats(str(Path(lists["training"]).parent / "stats2s"), mean, std)
+
+
+def embed_workflow(counters: dict, lists: dict, root: Path) -> dict:
+    """Phase 13: the TF1 round trip of the main path, the spectrogram
+    statistics, and the embedding workflow from the command line at full
+    width, bf16, on ``lists``: ``main --mode train --embedding 1`` (two
+    epochs, validation, normalized spectrograms), ``--mode test`` of the
+    best epoch, ``tools extract`` of the training and testing sets, ``tools
+    knn`` and ``retrieve`` (the card's distances against the CPU path's:
+    equal accuracy and ranks, and every row's neighbour list equal), ``tools aggregate``, and ``tools
+    export-tf1`` of the embed checkpoint warm-started back into a fresh
+    ``EmbedTask``, bit-equal. Every pass counts its launches. Returns the
+    launch counts summed over the passes."""
+    from acoustic_image_generation_tpu_torch import bridge
+    from acoustic_image_generation_tpu_torch.cli import main as cli
+    from acoustic_image_generation_tpu_torch.cli import tools
+    from acoustic_image_generation_tpu_torch.core import config as pconfig
+    from acoustic_image_generation_tpu_torch.evaluation.distance import as_feature_matrix, iter_nearest
+    from acoustic_image_generation_tpu_torch.evaluation.export import load_features
+    from acoustic_image_generation_tpu_torch.evaluation.knn import knn_accuracy
+    from acoustic_image_generation_tpu_torch.evaluation.retrieve import RANKS, retrieval_ranks
+    from acoustic_image_generation_tpu_torch.train import warmstart
+    from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
+    from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    total = dict.fromkeys(counters, 0)
+    passes = []
+
+    def run(what, fn, need=("stft", "conv_chain")) -> dict:
+        with counted(counters, what, need=need) as c:
+            fn()
+        passes.append((what, c.seconds))
+        for k, v in c.launches.items():
+            total[k] += v
+        return c.launches
+
+    phase = time.perf_counter()
+    for k, v in tf1_round_trip(counters, root).items():
+        total[k] += v
+    torch.cuda.empty_cache()
+    passes.append(("tf1 round trip and warm-started steps", time.perf_counter() - phase))
+    check_spectrogram_stats(counters, lists)
+    windows = int(np.prod(list(CACHE_DATA.values())))
+    batches = -(-windows // EMBED_FLOW_CLIPS)
+
+    got = run("embed train, 2 epochs", lambda: cli.main(embed_flags(lists, root, "--mode", "train", "--num_epochs", "2")),
+              need=("stft", "conv_chain", "conv_chain_backward"))
+    steps = 2 * (windows // EMBED_FLOW_CLIPS)
+    want = dict(stft=steps + 2 * batches, conv_chain=8 * steps + 8 * 2 * batches, conv_chain_backward=19 * steps,
+                mfcc=0)
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"embed train launches {got}, expected {want}")
+    run_dir = root / "runs" / "embed"
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    for r in records:
+        log(f"embed train epoch {r['epoch']} ({card()}): {r['steps']} steps in {r['seconds']:.3f} s, "
+            f"{r['clips_per_sec']:.1f} clips/s, train loss {r['train']['loss']:.6g}, valid "
+            + ", ".join(f"{k} {v:.6g}" for k, v in r["valid"].items()))
+    if not all(np.isfinite(list(r["valid"].values())).all() and np.isfinite(r["train"]["loss"]) for r in records):
+        raise AssertionError("embed train: non-finite losses")
+    best_epoch = BestTracker.read_best_epoch(str(run_dir))
+    best = run_dir / f"epoch_{best_epoch}.ckpt"
+    run("embed test", lambda: cli.main(embed_flags(lists, root, "--mode", "test", "--restore_checkpoint", str(best))))
+    text = (run_dir / "test_accuracy.txt").read_text()
+    log(f"embed test: {text.strip()}")
+    if "mse_audio" not in text:
+        raise AssertionError("embed test: no losses written")
+
+    feats = root / "features"
+    for split in ("training", "testing"):
+        run(f"embed tools extract --set {split}",
+            lambda: tools.main(["extract", "--set", split, str(best), str(feats), "--", *embed_flags(lists, root)]))
+    t0 = time.perf_counter()
+    knn = {}
+    for mod in ("acoustic", "audio", "video"):
+        train_dir, test_dir = feats / f"training_{mod}_{best_epoch}", feats / f"testing_{mod}_{best_epoch}"
+        tools.main(["knn", str(train_dir), str(test_dir)])
+        knn[mod] = float((test_dir / "testing_knn_value.txt").read_text())
+    anchor, gallery = feats / f"testing_acoustic_{best_epoch}", feats / f"testing_video_{best_epoch}"
+    tools.main(["retrieve", "--num_classes", str(CACHE_DATA["num_classes"]), str(anchor), str(gallery)])
+    ranks = json.loads((anchor / "testing_retrieval.txt").read_text())
+    card_s = time.perf_counter() - t0
+    passes.append(("embed tools knn (3) and retrieve on the card", card_s))
+    t0 = time.perf_counter()
+    cpu_knn = {}
+    for mod in knn:
+        tx, ty, _ = load_features(str(feats / f"training_{mod}_{best_epoch}"), "training")
+        qx, qy, _ = load_features(str(feats / f"testing_{mod}_{best_epoch}"), "testing")
+        cpu_knn[mod] = float(f"{knn_accuracy(tx, ty, qx, qy, device='cpu'):6f}")
+    ax, ay, _ = load_features(str(anchor), "testing")
+    gx, gy, _ = load_features(str(gallery), "testing")
+    cpu_ranks = {k: v for k, v in retrieval_ranks(ax, ay, gx, gy, CACHE_DATA["num_classes"], device="cpu").items()
+                 if k.startswith("rank")}
+    cpu_s = time.perf_counter() - t0
+    # the neighbour lists themselves, every row: the scalars above can agree while the distances do not
+    pairs = {f"knn {m}": (feats / f"testing_{m}_{best_epoch}", feats / f"training_{m}_{best_epoch}", 15)
+             for m in knn}  # the tools' k: knn_accuracy's 15 neighbours, retrieval's ranks up to 30
+    pairs["retrieve"] = (anchor, gallery, max(RANKS))
+    differ = {}
+    for what, (qdir, gdir, k) in pairs.items():
+        q = as_feature_matrix(load_features(str(qdir), qdir.name.split("_")[0])[0])
+        g = as_feature_matrix(load_features(str(gdir), gdir.name.split("_")[0])[0])
+        nearest = {dev: np.concatenate([idx for _, idx in iter_nearest(q, g, k, 2048, dev)]) for dev in ("cuda", "cpu")}
+        rows = int(np.sum(np.any(nearest["cuda"] != nearest["cpu"], axis=1)))
+        differ[what] = (rows, f"of {len(q)} rows of {k}, {q.shape[1]} dims")
+    log(f"embed knn ({card()}): {knn} on the card, {cpu_knn} on the CPU path; retrieval {ranks} on the card, "
+        f"{cpu_ranks} on the CPU path; {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; neighbour rows that "
+        f"differ between the card and the CPU path (tol 0): {differ}")
+    if knn != cpu_knn or ranks != cpu_ranks or any(rows for rows, _ in differ.values()):
+        raise AssertionError("the card's kNN or retrieval differs from the CPU path's")
+    agg = root / "aggregate.json"
+    tools.main(["aggregate", *[str(feats / f"testing_{m}_{best_epoch}" / "testing_knn_value.txt") for m in knn],
+                "--out", str(agg)])
+    log(f"embed aggregate: {agg.read_text().strip()}")
+
+    out = root / "tf1" / "embed.ckpt"
+    t0 = time.perf_counter()
+    tools.main(["export-tf1", str(best), str(out), "--", *embed_flags(lists, root)])
+    export_s = time.perf_counter() - t0
+    config = cli.config_from_args(cli.build_parser().parse_args(embed_flags(lists, root)))
+    source = Trainer(EmbedTask(pconfig.embed_config(config), device="cuda"), config)
+    source.restore(str(best), source.init_state())
+    fresh = EmbedTask(pconfig.embed_config(config), device="cuda").init_params(SEED + 2)
+    warm = pconfig.ExperimentConfig(run=pconfig.RunConfig(
+        acoustic_init_checkpoint=str(out), audio_init_checkpoint=str(out), visual_init_checkpoint=str(out)))
+    t0 = time.perf_counter()
+    warmstart.apply_init_checkpoints(Trainer(fresh).init_state(), warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    got, want = bridge.to_flax(fresh), bridge.to_flax(source.task)
+    bad = same_trees(got[0], want[0]) + same_trees(got[1], want[1])
+    mib = sum(p.stat().st_size for p in out.parent.glob("embed.ckpt.*")) / 2**20
+    log(f"embed tf1 ({card()}): {mib:.1f} MiB, tools export-tf1 {export_s:.2f} s, three scopes warm-started into "
+        f"a fresh EmbedTask in {warm_s:.2f} s; leaves not equal to the checkpoint's: {len(bad)}")
+    if bad:
+        raise AssertionError(f"the embed TF1 round trip differs: {bad[:5]}")
+    log(f"embed workflow ({card()}): " + ", ".join(f"{w} {s:.2f} s" for w, s in passes)
+        + f"; launches over the passes {total}")
+    return total
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -2801,26 +3098,29 @@ def kernels_only(group: str, package_root) -> int:
 
 
 def phase_only(which: str) -> int:
-    """``--cached`` (phase 10), ``--workflow`` (phase 11) or ``--classify``
-    (phase 12, after the ``sosfilt`` check): build the kernels of that path
-    and run the phase alone on its own shards. Prints no result line."""
+    """``--cached`` (phase 10), ``--workflow`` (phase 11), ``--classify``
+    (phase 12, after the ``sosfilt`` check) or ``--embed-workflow`` (phase
+    13): build the kernels of that path and run the phase alone on its own
+    shards. Prints no result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
     from acoustic_image_generation_tpu_torch.ops import qgemm as qg
     from acoustic_image_generation_tpu_torch.ops import sosfilt as sf
+    from acoustic_image_generation_tpu_torch.ops import stft as st
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
-    names = ("mfcc", "conv_chain", "sosfilt") if which == "classify" else ("mfcc", "conv_chain", "qgemm_s8")
+    names = {"classify": ("mfcc", "conv_chain", "sosfilt"), "embed_workflow": ("mfcc", "conv_chain", "stft")}.get(
+        which, ("mfcc", "conv_chain", "qgemm_s8"))
     for name, (secs, text) in build.build(names).items():
         log(f"build {name}: {secs:.2f} s")
         for fn, regs in re.findall(r"entry function '(\w+)'.*?(Used \d+ registers[^\n]*)", text, re.S):
             log(f"  {fn}: {regs}")
     counters = {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
-                "qgemm_s8": qg.qgemm_s8, "matmul_stats": cs.matmul_stats, "sosfilt": sf.filtfilt}
+                "qgemm_s8": qg.qgemm_s8, "matmul_stats": cs.matmul_stats, "sosfilt": sf.filtfilt, "stft": st.stft}
     if which == "classify":
         log(json.dumps({"sosfilt": check_sosfilt(sf)}))
     with scratch_dir() as root:
@@ -2830,6 +3130,8 @@ def phase_only(which: str) -> int:
             cached_training(counters, qg, lists, root)
         elif which == "workflow":
             workflow(counters, lists, root)
+        elif which == "embed_workflow":
+            embed_workflow(counters, lists, root)
         else:
             classification(counters, lists, root)
         log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
@@ -2851,6 +3153,8 @@ def main() -> int:
                       help="only run phase 11, the generation workflow from the command line")
     only.add_argument("--classify", action="store_const", const="classify", dest="only",
                       help="only run phase 12, the classification family (with the sosfilt check)")
+    only.add_argument("--embed-workflow", action="store_const", const="embed_workflow", dest="only",
+                      help="only run phase 13, TF1 checkpoints and the embedding workflow from the command line")
     parser.add_argument("--package-root", default=None,
                         help="with --trunk-gemms or --frontends: import the port from this checkout "
                              "(e.g. a parent commit's)")
@@ -2859,7 +3163,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only in ("cached", "workflow", "classify"):
+    if args.only in ("cached", "workflow", "classify", "embed_workflow"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -2990,16 +3294,21 @@ def main() -> int:
         launches["sosfilt"] = classification(every, lists, root)["sosfilt"]
         torch.cuda.empty_cache()
         log(f"phase classification: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        embed_flow = embed_workflow(every, lists, root)
+        torch.cuda.empty_cache()
+        log(f"phase embed workflow: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
+        k["embed_workflow_launches"] = embed_flow[k["name"]]
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # mfcc, stft: entry_times; every kernel: its launches over phase 11's passes
+    # mfcc, stft: entry_times; every kernel: its launches over phase 11's and phase 13's passes
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
-             "workflow_launches")
+             "workflow_launches", "embed_workflow_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ from acoustic_image_generation_tpu.train.trainer import Trainer as JaxTrainer
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.core import config as pconfig
 from acoustic_image_generation_tpu_torch.core import msgpack
+from acoustic_image_generation_tpu_torch.core.tf1_export import export_state
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import warmstart
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
@@ -336,8 +337,14 @@ def test_warm_starts(tmp_path):
     ckpt.restore_params(b, task)
     assert same(bridge.to_flax(task)[0], pb) and same(bridge.to_flax(task)[1], sa)
 
-    # a TF1 checkpoint (an .index sibling) needs tensorflow: refused by name
-    tf1 = str(tmp_path / "model.ckpt-100")
-    open(tf1 + ".index", "wb").close()
-    with pytest.raises(NotImplementedError, match="TF1"):
-        warmstart.overlay_model(state, "resnet", tf1)
+    # a TF1 checkpoint (an .index sibling) of a's trunk and statistics:
+    # imported under resnet_v1_50, its conv_map (a head the ImageNet start
+    # skips) left as it was; init_checkpoint takes the JAX format only
+    tf1 = export_state({"resnet": pa["resnet"]}, {"resnet": sa["resnet"]}, str(tmp_path / "model.ckpt-100"))
+    warmstart.overlay_model(state, "resnet", tf1)
+    p, s = bridge.to_flax(task)
+    trunk = lambda tree: {k: v for k, v in tree.items() if k != "conv_map"}
+    assert same(trunk(p["resnet"]), trunk(pa["resnet"])) and same(s["resnet"], sa["resnet"])
+    assert same(p["resnet"]["conv_map"], pb["resnet"]["conv_map"]) and same(p["generator"], pb["generator"])
+    with pytest.raises(ValueError, match="TF1"):
+        warmstart.restore_params_only(state, tf1)

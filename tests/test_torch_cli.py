@@ -23,6 +23,7 @@ from acoustic_image_generation_tpu_torch.data import write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
 from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
+from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +35,8 @@ def _actions(parser):
 
 def test_parser_keeps_every_jax_flag_and_default():
     jax_actions, port_actions = _actions(jmain.build_parser()), _actions(pmain.build_parser())
-    assert set(port_actions) - set(jax_actions) == {"device"}
+    # --device, and a flag for a DataConfig field JAX's parser leaves at its default
+    assert set(port_actions) - set(jax_actions) == {"device", "normalize_spectrogram"}
     assert set(jax_actions) <= set(port_actions)
     for dest, ja in jax_actions.items():
         pa = port_actions[dest]
@@ -43,6 +45,7 @@ def test_parser_keeps_every_jax_flag_and_default():
         assert (pa.type is None) == (ja.type is None), dest
     device = port_actions["device"]
     assert device.default == "cuda" and device.choices == ["cuda", "cpu"]
+    assert port_actions["normalize_spectrogram"].default == 0
 
 
 @pytest.mark.parametrize("argv", [
@@ -67,12 +70,17 @@ def test_dispatch_runs_the_generation_task_and_names_what_waits():
                                     "--resnet_units", "1,1,1,1", "--compute_dtype", "float32"]), "cpu")
     assert isinstance(task, GenerationTask) and task.device == torch.device("cpu")
     assert task.generator.skips == 2 and task.cfg.ae and task.dtype == torch.float32
-    waits = {("--embedding", "1"): "item 6", ("--embedding", "1", "--project", "1"): "item 7",
+    waits = {("--embedding", "1", "--project", "1"): "item 7",
              ("--embedding", "1", "--mfcc", "1", "--jointmvae", "1"): "item 7",
              ("--model", "UNet"): "item 7"}
     for argv, item in waits.items():
         with pytest.raises(NotImplementedError, match=item):
             pmain.select_task(parse(list(argv)), "cpu")
+    # the embedding family: its variant, latents and the music data's 13 channels
+    embed = pmain.select_task(parse(["--embedding", "1", "--proxy", "1", "--num_class", "64", "--datatype", "music",
+                                     "--compute_dtype", "float32"]), "cpu")
+    assert isinstance(embed, EmbedTask) and embed.cfg.proxy and embed.cfg.latent_dim == 64
+    assert embed.cfg.num_channels == 13 and embed.acoustic.layer1.conv_1.weight.shape[0] == 9 * 13
     # the classification family is ported (tests/test_torch_classify_cli.py)
     assert isinstance(pmain.select_task(parse(["--model", "DualCamNet", "--mfcc", "1"]), "cpu"), ClassificationTask)
     with pytest.raises(NotImplementedError, match="item 8"):

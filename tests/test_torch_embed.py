@@ -228,5 +228,5 @@ def test_service_and_task_check_their_inputs():
     batch = Trainer(task)._prepare({k: v for k, v in raw_clips(3, 1).items() if k != "action"})
     with pytest.raises(ValueError, match="labels"):
         task.loss(batch, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="stats"):
+    with pytest.raises(ValueError, match="stats_dir"):  # normalization without its statistics
         EmbedTask(EmbedConfig(normalize_spectrogram=True), device="cpu")

@@ -164,9 +164,10 @@ def test_train_step_draws_its_noise_from_the_step_generator():
         losses.append(float(metrics["loss"]))
         assert metrics["triplet"].dtype == torch.float32
     assert losses[0] == losses[1]
-    try:
-        trainer.eval_step(state, raw)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("the embedding task's eval step is not ported and must raise")
+    # the eval step draws nothing: its sums are the eval forward's, every time
+    sums, n = trainer.eval_step(state, raw)
+    with torch.no_grad():
+        want, _ = task.eval_losses(trainer._prepare(raw, train=False))
+    assert float(n) == 1 and set(sums) == set(want)
+    for k, v in want.items():
+        assert float(sums[k]) == float(v.sum()) == float(trainer.eval_step(state, raw)[0][k]), k

@@ -35,7 +35,10 @@ def test_port_imports_no_jax():
         needed.append("acoustic_image_generation_tpu_torch.train.feature_cache")
         needed += ["acoustic_image_generation_tpu_torch." + m for m in
                    ("core.config", "core.msgpack", "train.checkpoint", "train.warmstart", "evaluation.iou",
-                    "evaluation.localize", "utils.tb_events", "utils.logger", "cli.main", "cli.tools")]
+                    "evaluation.localize", "utils.tb_events", "utils.logger", "cli.main", "cli.tools",
+                    "core.tf1_format", "core.tf1_import", "core.tf1_export", "data.stats", "evaluation.distance",
+                    "evaluation.knn", "evaluation.retrieve", "evaluation.export", "evaluation.aggregate",
+                    "utils.xlsx")]
         assert all(m in sys.modules for m in needed), [m for m in needed if m not in sys.modules]
         bad = sorted(
             m for m in sys.modules
