@@ -22,9 +22,12 @@ embedding family's ``EmbedTask`` (its variant from ``--proxy``,
 with ``--correspondence 1``, else ``ClassificationTask`` with ``--mfcc 1``
 (real images, or the tiled MFCC map with ``--mfccmap 1``), else
 ``GeneratedClassificationTask`` (DualCamNet on the frozen generator's
-images). The projection, joint and reconstruction tasks raise
-``NotImplementedError`` naming their item in ``ROADMAP.md`` Queue 1 (item
-7).
+images). With ``--embedding 1``, ``--project 1`` runs ``ProjectTask`` (its
+wiring from ``--encoder_type`` and ``--fusion``, its alignment from
+``--l2``) and ``--jointmvae 1`` ``JointTask`` (``--fusion``,
+``--onlyaudiovideo``, ``--moddrop``), both ahead of ``--mfcc``; without
+``--embedding``, ``--model UNet`` runs ``ReconstructTask`` on the modality
+of ``--encoder_type`` (``Ac``, ``Energy``, ``Audio``, ``Video``).
 
 One flag sets a ``DataConfig`` field that JAX's parser leaves at its
 default: ``--normalize_spectrogram 1`` (the embedding task's z-normalized
@@ -46,6 +49,9 @@ from acoustic_image_generation_tpu_torch.core.config import (
     classify_config,
     embed_config,
     generation_config,
+    joint_config,
+    project_config,
+    reconstruct_config,
 )
 
 
@@ -214,19 +220,27 @@ def select_task(config: ExperimentConfig, device: str = "cuda"):
     ``run.seed`` (JAX's trainer initializes from that seed too, with its own
     generator)."""
     m = config.model
-    if m.embedding and m.mfcc and not (m.project or m.jointmvae):
+    seed = config.run.seed
+    if m.embedding and m.project:
+        from acoustic_image_generation_tpu_torch.train.project import ProjectTask
+
+        return ProjectTask(project_config(config), device=device).init_params(seed)
+    if m.embedding and m.jointmvae:
+        from acoustic_image_generation_tpu_torch.train.joint import JointTask
+
+        return JointTask(joint_config(config), device=device).init_params(seed)
+    if m.embedding and m.mfcc:
         from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 
-        return GenerationTask(generation_config(config), device=device).init_params(config.run.seed)
-    if m.embedding and (m.project or m.jointmvae):
-        raise NotImplementedError("the projection and joint tasks are not ported (ROADMAP.md Queue 1, item 7)")
+        return GenerationTask(generation_config(config), device=device).init_params(seed)
     if m.embedding:
         from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 
-        return EmbedTask(embed_config(config), device=device).init_params(config.run.seed)
+        return EmbedTask(embed_config(config), device=device).init_params(seed)
     if m.model == "UNet":
-        raise NotImplementedError("the reconstruction task (ReconstructTask) is not ported "
-                                  "(ROADMAP.md Queue 1, item 7)")
+        from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructTask
+
+        return ReconstructTask(reconstruct_config(config), device=device).init_params(seed)
     from acoustic_image_generation_tpu_torch.train import classify
 
     if config.data.correspondence:
@@ -235,7 +249,7 @@ def select_task(config: ExperimentConfig, device: str = "cuda"):
         task = classify.ClassificationTask(classify_config(config), device=device)
     else:
         task = classify.GeneratedClassificationTask(classify_config(config, generated=True), device=device)
-    return task.init_params(config.run.seed)
+    return task.init_params(seed)
 
 
 def make_loader(config: ExperimentConfig, split: str):

@@ -144,11 +144,13 @@ def cmd_export_tf1(args) -> int:
 
 
 def cmd_extract(args) -> int:
-    """Per-second latents of a trained embedding model over a split, in the
-    kNN and retrieval layout (``evaluation/export.py``): ``mean + std *
-    eps`` per modality (one ``eps`` a batch, from a generator seeded with
-    ``(0, batch)``), or the means with ``--mean``; on the task's device,
-    batch by batch."""
+    """Per-second latents of a trained embedding, projection or joint model
+    over a split, in the kNN and retrieval layout (``evaluation/export.py``),
+    one directory per latent of the task's ``embeddings`` (``acoustic``,
+    ``audio``, ``video``; the joint task's ``acoustic_true`` too): ``mean +
+    std * eps`` (the batch's noise from a generator seeded with ``(0,
+    batch)``), or the means with ``--mean``; on the task's device, batch by
+    batch."""
     import torch
 
     from acoustic_image_generation_tpu_torch.evaluation.export import export_features
@@ -156,7 +158,8 @@ def cmd_extract(args) -> int:
 
     config, task, trainer, loader, _ = _restored(args, args.set)
     if not hasattr(task, "embeddings"):
-        raise SystemExit("extract needs an embedding task (--embedding 1 without --mfcc)")
+        raise SystemExit("extract needs a task with embeddings (--embedding 1 without --mfcc, or with "
+                         "--project 1 or --jointmvae 1)")
     feats: dict[str, list] = {}
     labels, scenario = [], []
     for i, raw_batch in enumerate(loader.batches(0)):

@@ -7,7 +7,9 @@ JSON form (``to_json``: ``indent=2``, ``sort_keys=True``), so a
 ``generation_config`` builds the port's ``GenerationConfig`` (the fields the
 generation task and its train step read) from an ``ExperimentConfig``,
 ``classify_config`` the classification tasks' ``ClassifyConfig``,
-``embed_config`` the embedding task's ``EmbedConfig``.
+``embed_config`` the embedding task's ``EmbedConfig``, and
+``reconstruct_config``, ``project_config`` and ``joint_config`` the
+reconstruction, projection and joint tasks' configurations.
 
 Fields the port reads as JAX does: the data fields the loader takes
 (``datatype``, ``train_file``/``valid_file``/``test_file``, ``batch_size``,
@@ -30,6 +32,9 @@ from typing import Any
 from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
+from acoustic_image_generation_tpu_torch.train.joint import JointConfig
+from acoustic_image_generation_tpu_torch.train.project import ProjectConfig
+from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig
 
 
 @dataclass(frozen=True)
@@ -282,3 +287,35 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
         learning_rate=o.learning_rate,
         seed=config.run.seed,
     )
+
+
+def _common(config: ExperimentConfig) -> dict:
+    """The fields every task configuration takes, after the one-device and
+    TF1 Adam checks of ``generation_config``."""
+    generation_config(config)
+    return dict(num_channels=config.data.num_channels, compute_dtype=config.parallel.compute_dtype,
+                learning_rate=config.optim.learning_rate, seed=config.run.seed)
+
+
+def reconstruct_config(config: ExperimentConfig) -> ReconstructConfig:
+    """The port's ``ReconstructConfig`` of an experiment (``model.
+    encoder_type``; 13 acoustic channels for music). Raises as
+    ``generation_config`` does."""
+    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config))
+
+
+def project_config(config: ExperimentConfig) -> ProjectConfig:
+    """The port's ``ProjectConfig`` of an experiment (``model.encoder_type``,
+    ``fusion``, ``l2``, ``optim.margin``). Raises as ``generation_config``
+    does."""
+    m = config.model
+    return ProjectConfig(encoder_type=m.encoder_type, fusion=m.fusion, l2=m.l2, margin=config.optim.margin,
+                         **_common(config))
+
+
+def joint_config(config: ExperimentConfig) -> JointConfig:
+    """The port's ``JointConfig`` of an experiment (``model.fusion``,
+    ``onlyaudiovideo``, ``moddrop``). Raises as ``generation_config``
+    does."""
+    m = config.model
+    return JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop, **_common(config))

@@ -60,6 +60,16 @@ def _init_kernel(init: str, shape, fan_in: int, fan_out: int, generator: torch.G
     raise ValueError(f"unknown init {init!r}")
 
 
+def init_modules(root: nn.Module, seed: int) -> None:
+    """``reset_parameters`` of every submodule of ``root`` that has one, in
+    module order, from one CPU generator seeded with ``seed``: a task's
+    random weights with the JAX initializers' distributions."""
+    g = torch.Generator().manual_seed(seed)
+    for m in root.modules():
+        if m is not root and hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+
+
 def minmax_norm(x: torch.Tensor, dims) -> torch.Tensor:
     """Per-sample min-max onto [0, 1] over ``dims``. No epsilon, as in the
     reference: a constant input gives NaN."""

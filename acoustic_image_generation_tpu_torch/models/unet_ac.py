@@ -2,9 +2,11 @@
 
 Counterpart of ``acoustic_image_generation_tpu/models/unet_ac.py``:
 
-``UNetAcoustic``, the skip-less acoustic VAE of the embedding family
-(``features``, ``encode``, ``from_features``, ``decode``, ``forward``; the
-projection family's ``external_latent`` is not ported):
+``UNetAcoustic``, the skip-less acoustic VAE of the embedding, reconstruction,
+projection and joint families (``features``, ``encode``, ``from_features``,
+``decode``, ``forward``; ``forward(x, external_latent=(mean, std))`` decodes
+from another modality's latent, as the projection family's ``unet_z``
+variant does):
 
     layer1  conv pair C->128->128 @36x48, then a stride-3 pool conv -> 12x16
     layer3  conv pair 128->133->133 @12x16
@@ -57,7 +59,7 @@ class VaeOutput(NamedTuple):
     mean: torch.Tensor
     std: torch.Tensor | None  # None in embedding/AE mode
     features: torch.Tensor  # the bottleneck feature map
-    logits: torch.Tensor
+    logits: torch.Tensor | None  # None where the output is not a sigmoid (UNetEnergy)
 
 
 class UNetAcoustic(nn.Module):
@@ -103,9 +105,22 @@ class UNetAcoustic(nn.Module):
         logits = self._decode_logits(z)
         return VaeOutput(torch.sigmoid(logits), z, mean, std, conv2, logits)
 
-    def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+    def forward(self, x, *, external_latent=None, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        """The VAE on ``x``. With ``external_latent=(mean2, std2)`` the
+        decoder reads ``z = mean2 + std2 * eps`` (``mean2`` without noise)
+        instead of this VAE's own sample, whose (mean, std) are still
+        returned; ``eps`` is then the shape of ``std2``."""
         del train  # no BN in this model
-        return self.from_features(self.features(x), eps=eps, generator=generator)
+        conv2 = self.features(x)
+        if external_latent is None:
+            return self.from_features(conv2, eps=eps, generator=generator)
+        _, mean, std = self.vae(conv2)
+        mean2, std2 = external_latent
+        if eps is None and generator is not None:
+            eps = torch.randn(std2.shape, generator=generator, device=std2.device)
+        z = mean2 if eps is None else mean2 + std2 * eps.to(std2.dtype)
+        logits = self._decode_logits(z)
+        return VaeOutput(torch.sigmoid(logits), z, mean, std, conv2, logits)
 
 
 class UNetAcResNet(nn.Module):

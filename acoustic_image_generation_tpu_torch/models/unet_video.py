@@ -1,4 +1,5 @@
-"""``UNetVideo``: the video-frame VAE of the embedding family, on NHWC.
+"""``UNetVideo``, the video-frame VAE, and ``UNetEnergy``, the energy-map
+UNet, on NHWC.
 
 Counterpart of ``acoustic_image_generation_tpu/models/unet_video.py::
 UNetVideo``: a (N,224,298,3) frame -> BN conv-pair stages with VALID
@@ -16,7 +17,21 @@ back to 224x298 -> 3-channel sigmoid. BN everywhere (momentum .99, eps
     upsample_8  (4,3)/2 -> 74x99, layer8, layer9 (128)
     upsample_10 (5,4)/3 -> 224x298, layer10, layer11 (32); final 1x1 -> 3
 
-``UNetEnergy`` and ``UNetVideoSkip`` are not ported.
+``UNetEnergy`` (scope ``UNetEnergy``, the reconstruction family's
+``Energy`` model): a (N,36,48,1) map, no BN anywhere, so every conv pair
+runs on ``conv_chain`` (JAX's on plain convs; identical in f32):
+
+    layer1  1->16->16 @36x48, pool 3x3/2 SAME -> 18x24
+    layer2  16 @18x24, pool -> 9x12
+    layer3  8 @9x12, pool (3,5)/2 VALID -> 4x4; layer4 8 @4x4
+    latent  the flattened (4,4,8) bottleneck is both mean and variance,
+            raw (no softplus): z = mean + mean * eps
+    upsample_6 (3,6)/2 -> 9x12 (8 ch), concat layer3's conv, layer6, layer6_2 (8)
+    upsample_7 (2,2)/2 -> 18x24 (16), concat layer2's conv, layer7, layer7_2 (16)
+    upsample_8 (2,2)/2 -> 36x48 (16), concat layer1's conv, layer8 (16), layer8_2 (8)
+    final   3x3 conv -> 1, ReLU (not sigmoid)
+
+``UNetVideoSkip`` is not ported (``ROADMAP.md`` Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -83,3 +98,51 @@ class UNetVideo(nn.Module):
     def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
         conv5 = self.features(x, train=train)
         return self.from_features(conv5, eps=eps, generator=generator, train=train)
+
+
+class UNetEnergy(nn.Module):
+    """Scope ``UNetEnergy``: the energy-map UNet with skip concats."""
+
+    LATENT = 4 * 4 * 8
+
+    def __init__(self, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+
+        def ccp(in_ch, filters, **extra):
+            return ConvConvPool(in_ch, filters, **extra, **kw)
+
+        self.layer1 = ccp(1, (16, 16), pool=True)
+        self.layer2 = ccp(16, (16, 16), pool=True)
+        self.layer3 = ccp(16, (8, 8), pool=True, pool_padding="VALID", pool_kernel=(3, 5))
+        self.layer4 = ccp(8, (8, 8))
+        self.upsample_6 = ConvTransposeTF(8, 8, (3, 6), (2, 2), **kw)
+        self.layer6 = ccp(16, (8, 8))
+        self.layer6_2 = ccp(8, (8, 8))
+        self.upsample_7 = ConvTransposeTF(8, 16, (2, 2), (2, 2), **kw)
+        self.layer7 = ccp(32, (16, 16))
+        self.layer7_2 = ccp(16, (16, 16))
+        self.upsample_8 = ConvTransposeTF(16, 16, (2, 2), (2, 2), **kw)
+        self.layer8 = ccp(32, (16, 16))
+        self.layer8_2 = ccp(16, (8, 8))
+        self.final = Conv2d(8, 1, (3, 3), **kw)
+
+    def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        """``eps`` (N, 128), or drawn from ``generator``; with neither,
+        ``z = mean``."""
+        del train  # no BN in this model
+        conv1, pool1 = self.layer1(x)
+        conv2, pool2 = self.layer2(pool1)
+        conv3, pool3 = self.layer3(pool2)
+        conv4 = self.layer4(pool3)
+        mean = variance = conv4.reshape(-1, self.LATENT)
+        if eps is None and generator is not None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        z = mean if eps is None else mean + variance * eps.to(mean.dtype)
+        up = self.upsample_6(z.reshape(-1, 4, 4, 8))
+        up = self.layer6_2(self.layer6(torch.cat([up, conv3], -1)))
+        up = self.upsample_7(up)
+        up = self.layer7_2(self.layer7(torch.cat([up, conv2], -1)))
+        up = self.upsample_8(up)
+        up = self.layer8_2(self.layer8(torch.cat([up, conv1], -1)))
+        return VaeOutput(F.relu(self.final(up)), z, mean, variance, conv4, None)

@@ -43,6 +43,7 @@ from acoustic_image_generation_tpu_torch.losses.classify import (
     softmax_cross_entropy,
 )
 from acoustic_image_generation_tpu_torch.models.dualcamnet import DualCamNet, clip_logits
+from acoustic_image_generation_tpu_torch.models.layers import init_modules
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -99,10 +100,7 @@ class ClassificationTask(nn.Module):
     def init_params(self, seed: int) -> "ClassificationTask":
         """Random weights with the JAX initializers' distributions, drawn
         from a CPU generator seeded with ``seed``."""
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(g)
+        init_modules(self, seed)
         return self
 
     def inputs(self, batch: Batch) -> torch.Tensor:

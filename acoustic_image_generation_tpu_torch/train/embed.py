@@ -46,7 +46,7 @@ from acoustic_image_generation_tpu_torch.losses.metric import nca_loss, triplet_
 from acoustic_image_generation_tpu_torch.losses.recon import huber_tf, kl_diag_gaussian, mse_tf, sigmoid_ce_logits
 from acoustic_image_generation_tpu_torch.losses.regularization import l2_regularization
 from acoustic_image_generation_tpu_torch.models.blocks import ChainConv
-from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF, Dense
+from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF, Dense, init_modules
 from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcoustic
 from acoustic_image_generation_tpu_torch.models.unet_sound import UNetSound
 from acoustic_image_generation_tpu_torch.models.unet_video import UNetVideo
@@ -119,10 +119,7 @@ class EmbedTask(nn.Module):
         """Random weights with the JAX initializers' distributions (glorot
         uniform, zero biases; BN scale 1, bias 0, running mean 0, variance
         1), drawn from a CPU generator seeded with ``seed``."""
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(g)
+        init_modules(self, seed)
         return self
 
     @staticmethod

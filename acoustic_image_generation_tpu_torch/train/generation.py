@@ -41,6 +41,7 @@ from acoustic_image_generation_tpu_torch.losses.recon import (
     sigmoid_ce_logits,
 )
 from acoustic_image_generation_tpu_torch.losses.regularization import l2_regularization
+from acoustic_image_generation_tpu_torch.models.layers import init_modules
 from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk, calibrate, quantize_trunk, trunk_forward
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN, ResNet50
 from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcResNet, VaeOutput
@@ -146,10 +147,7 @@ class GenerationTask(nn.Module):
         from a CPU generator seeded with ``seed``: glorot-uniform with zero
         biases for the generator, He truncated-normal for the trunk, BN
         scale 1, bias 0, running mean 0, running variance 1."""
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(g)
+        init_modules(self, seed)
         return self
 
     def resnet_kernels(self) -> list[torch.Tensor]:

@@ -1,5 +1,6 @@
 """The train step, evaluation, epoch loop, test and checkpoints, for the
-generation, embedding and classification tasks.
+generation, embedding, classification, reconstruction, projection and
+joint tasks.
 
 Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
 (``__init__``, ``init_state``, ``_prepare``, ``_step_core``, the cached
@@ -21,9 +22,10 @@ preprocessing (``data/preprocess.py``): the low-pass branch runs (the
 or, for the music data, the shuffled pairs (``correspondence_shuffle``,
 permutations from the step's data generator; an eval batch keeps its
 halves in order and pairs real clips only). The eval mask then covers the
-valid prefix of each half. A task's losses may be per frame (generation),
-per second (embedding) or per clip (classification): the mask scales by the
-rows per clip.
+valid prefix of each half. A task's losses may be per frame (generation;
+reconstruction of acoustic, energy and video frames), per second
+(embedding, projection, joint; reconstruction of spectrograms) or per clip
+(classification): the mask scales by the rows per clip.
 
 ``fit`` is JAX's epoch loop: ``configuration.txt``, ``metrics.jsonl``, the
 best tracker's ``model.txt``, a snapshot every 10 epochs and at every best
@@ -229,20 +231,26 @@ class Trainer:
         self.qtrunk = self.task.build_qtrunk(normalize_video(video))
 
     def _noise(self, step: int, eps):
-        """``(eps tensor, None)`` when the noise is given, else ``(None, the
-        step's generator)``."""
+        """``(eps, None)`` when the noise is given (a tensor, or a dict of
+        them for the tasks with several draws), else ``(None, the step's
+        generator)``."""
         if eps is None:
             return None, step_generator(self.cfg.seed, step, self.device)
-        return torch.as_tensor(np.array(eps, np.float32), device=self.device), None
+        as_tensor = lambda e: torch.as_tensor(np.array(e, np.float32), device=self.device)
+        if isinstance(eps, dict):
+            return {k: as_tensor(v) for k, v in eps.items()}, None
+        return as_tensor(eps), None
 
     def train_step(self, state: TrainState, raw, *, eps=None, moddrop=None) -> tuple[TrainState, dict]:
         """One step: prepare, loss and grads, TF1 Adam, BN statistics
         updated. ``raw``: a ``RawBatch`` or a dict; with the feature cache on
         and ``window_ids`` given, the step runs on cached trunk features.
         ``eps`` replaces the step's noise: (frames, 150) for the generation
-        task, (seconds, latent_dim) for the embedding task, whose
-        ``moddrop`` (keep flags of video, audio, acoustic) replaces the
-        moddrop draws. Returns the state (updated in place, step advanced)
+        task, (seconds, latent_dim) for the embedding task, (samples,
+        latent) for the reconstruction task, a dict of the draws for the
+        projection and joint tasks; ``moddrop`` replaces the moddrop draws
+        (the embedding task's keep flags of video, audio and acoustic, the
+        joint task's one flag). Returns the state (updated in place, step advanced)
         and the loss terms as detached f32 scalars."""
         raw = as_raw(raw)
         self._maybe_build_qtrunk(raw)

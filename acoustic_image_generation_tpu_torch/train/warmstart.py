@@ -41,17 +41,15 @@ def _overlay(tree: dict, source: dict, where: str) -> dict:
     return out
 
 
-def overlay_model(state: TrainState, model_key: str, path: str) -> TrainState:
-    """Replace the parameters (and BN statistics, if any) of the model
-    ``model_key`` (``resnet``, ``generator``, ...) with a checkpoint's:
-    the checkpoint's ``params[model_key]`` when it has that key, else its
-    whole ``params`` tree (a checkpoint of that model alone). A TF1
-    checkpoint's tensors under the model's reference scope are merged over
-    the model's current values, each shape checked."""
-    params, stats = bridge.to_flax(state.task)
-    if _is_tf_checkpoint(path):
-        imported_p, imported_s = tf1_import.import_scope(tf1_import.load_tf1_checkpoint(path),
-                                                         SCOPES.get(model_key, model_key))
+def _overlay_trees(params: dict, stats: dict, model_key: str, path: str, loaded: dict) -> None:
+    """``overlay_model`` on the flax trees ``params`` and ``stats`` (in
+    place); ``loaded`` keeps each file read once, by path."""
+    tf1 = _is_tf_checkpoint(path)
+    if path not in loaded:
+        loaded[path] = tf1_import.load_tf1_checkpoint(path) if tf1 else read_state_dict(path)
+    source = loaded[path]
+    if tf1:
+        imported_p, imported_s = tf1_import.import_scope(source, SCOPES.get(model_key, model_key))
         if model_key == "resnet":  # the ImageNet warm start skips the new heads
             for head in ("logits", "conv_map"):
                 imported_p.pop(head, None)
@@ -60,13 +58,23 @@ def overlay_model(state: TrainState, model_key: str, path: str) -> TrainState:
         if model_key in stats and imported_s:
             stats[model_key] = tf1_import.merge_into(stats[model_key], imported_s)
     else:
-        restored = read_state_dict(path)
-        src_params = restored.get("params", restored)
+        src_params = source.get("params", source)
         sub = src_params[model_key] if model_key in src_params else src_params
         params[model_key] = _overlay(params[model_key], sub, model_key)
-        src_stats = restored.get("batch_stats", {})
+        src_stats = source.get("batch_stats", {})
         if model_key in stats and model_key in src_stats:
             stats[model_key] = _overlay(stats[model_key], src_stats[model_key], model_key)
+
+
+def overlay_model(state: TrainState, model_key: str, path: str) -> TrainState:
+    """Replace the parameters (and BN statistics, if any) of the model
+    ``model_key`` (``resnet``, ``generator``, ...) with a checkpoint's:
+    the checkpoint's ``params[model_key]`` when it has that key, else its
+    whole ``params`` tree (a checkpoint of that model alone). A TF1
+    checkpoint's tensors under the model's reference scope are merged over
+    the model's current values, each shape checked."""
+    params, stats = bridge.to_flax(state.task)
+    _overlay_trees(params, stats, model_key, path, {})
     bridge.load_flax(state.task, params, stats)
     return state
 
@@ -86,7 +94,9 @@ def restore_params_only(state: TrainState, path: str) -> TrainState:
 
 
 def apply_init_checkpoints(state: TrainState, config: ExperimentConfig) -> TrainState:
-    """The four init flags of ``config.run`` onto ``state`` (in place)."""
+    """The four init flags of ``config.run`` onto ``state`` (in place). The
+    model overlays go onto one copy of the task's trees, loaded back once,
+    and a file that several flags name is read once."""
     run = config.run
     if run.init_checkpoint:
         state = restore_params_only(state, run.init_checkpoint)
@@ -95,14 +105,15 @@ def apply_init_checkpoints(state: TrainState, config: ExperimentConfig) -> Train
         (run.acoustic_init_checkpoint, ("generator", "acoustic")),
         (run.audio_init_checkpoint, ("audio",)),
     ]
-    keys = set(bridge.to_flax(state.task)[0])
+    pairs = [(path, candidates) for path, candidates in pairs if path]
+    if not pairs:
+        return state
+    params, stats = bridge.to_flax(state.task)
+    loaded: dict = {}  # one read of a file that several flags name
     for path, candidates in pairs:
-        if not path:
-            continue
-        for key in candidates:
-            if key in keys:
-                state = overlay_model(state, key, path)
-                break
-        else:
+        key = next((k for k in candidates if k in params), None)
+        if key is None:
             raise KeyError(f"no model key {candidates} in state for checkpoint {path}")
+        _overlay_trees(params, stats, key, path, loaded)
+    bridge.load_flax(state.task, params, stats)
     return state

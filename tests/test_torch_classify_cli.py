@@ -95,8 +95,13 @@ def test_dispatch_matches_jax():
         mfccmap = "--mfccmap" in argv
         assert task.cfg.mfccmap == mfccmap
         assert task.reads_mfcc == (mfccmap or cls is classify.GeneratedClassificationTask)
-    with pytest.raises(NotImplementedError, match="ReconstructTask.*item 7"):
-        pmain.select_task(_parse(pmain, ["--model", "UNet", "--encoder_type", "Ac"]), "cpu")
+    # --model UNet is the reconstruction family, on the modality of --encoder_type
+    argv = ["--model", "UNet", "--encoder_type", "Ac", "--datatype", "music"]
+    task = pmain.select_task(_parse(pmain, argv + FLAGS), "cpu")
+    jtask = jmain.select_task(_parse(jmain, argv + FLAGS))
+    assert type(task).__name__ == type(jtask).__name__ == "ReconstructTask"
+    assert task.encoder_type == jtask.encoder_type == "Ac"
+    assert task.model.final.weight.shape[0] == jtask.cfg.data.num_channels == 13
 
 
 @pytest.fixture(scope="module")

@@ -19,12 +19,16 @@ from acoustic_image_generation_tpu.core.config import ExperimentConfig as JaxExp
 from acoustic_image_generation_tpu.train.checkpoint import BestTracker as JaxBestTracker
 from acoustic_image_generation_tpu_torch.cli import main as pmain
 from acoustic_image_generation_tpu_torch.cli import tools
+from acoustic_image_generation_tpu_torch.core import config as pconfig
 from acoustic_image_generation_tpu_torch.data import write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
 from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
+from acoustic_image_generation_tpu_torch.train.joint import JointTask
+from acoustic_image_generation_tpu_torch.train.project import ProjectTask
+from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructTask
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,12 +74,24 @@ def test_dispatch_runs_the_generation_task_and_names_what_waits():
                                     "--resnet_units", "1,1,1,1", "--compute_dtype", "float32"]), "cpu")
     assert isinstance(task, GenerationTask) and task.device == torch.device("cpu")
     assert task.generator.skips == 2 and task.cfg.ae and task.dtype == torch.float32
-    waits = {("--embedding", "1", "--project", "1"): "item 7",
-             ("--embedding", "1", "--mfcc", "1", "--jointmvae", "1"): "item 7",
-             ("--model", "UNet"): "item 7"}
-    for argv, item in waits.items():
-        with pytest.raises(NotImplementedError, match=item):
-            pmain.select_task(parse(list(argv)), "cpu")
+    # the projection, joint and reconstruction families, dispatched as JAX's select_task does:
+    # --project before --jointmvae before --mfcc, then --model UNet (full-width tasks: three cases)
+    cases = {("--embedding", "1", "--project", "1", "--jointmvae", "1", "--fusion", "1", "--l2", "1"):
+                 (ProjectTask, "wiring", "fusion"),
+             ("--embedding", "1", "--mfcc", "1", "--jointmvae", "1", "--onlyaudiovideo", "1", "--moddrop", "1"):
+                 (JointTask, "trained", "associator1"),
+             ("--model", "UNet", "--encoder_type", "Energy", "--project", "1"):
+                 (ReconstructTask, "encoder_type", "Energy")}
+    for argv, (cls, attr, value) in cases.items():
+        task = pmain.select_task(parse(list(argv) + ["--compute_dtype", "float32"]), "cpu")
+        jtask = jmain.select_task(jmain.config_from_args(jmain.build_parser().parse_args(list(argv))))
+        assert type(task) is cls and type(jtask).__name__ == cls.__name__, argv
+        assert getattr(task, attr) == value, argv
+        del task
+    assert pconfig.project_config(parse(["--embedding", "1", "--project", "1", "--l2", "1"])).l2
+    assert pconfig.joint_config(parse(["--moddrop", "1", "--datatype", "music"])) == pconfig.JointConfig(
+        moddrop=True, num_channels=13, compute_dtype="bfloat16")
+    assert pconfig.reconstruct_config(parse(["--model", "UNet"])).encoder_type == "Video"
     # the embedding family: its variant, latents and the music data's 13 channels
     embed = pmain.select_task(parse(["--embedding", "1", "--proxy", "1", "--num_class", "64", "--datatype", "music",
                                      "--compute_dtype", "float32"]), "cpu")

@@ -164,5 +164,7 @@ def test_unet_split_methods_and_unported_variants():
         eps = torch.randn((2, LATENT), generator=g)
         torch.testing.assert_close(m.from_features(feat, eps=eps).z, mean + std * eps, rtol=0, atol=0)
     assert feat.shape == (2, 12, 16, 133) and out.output.shape == x.shape
-    with pytest.raises(NotImplementedError, match="small"):
-        UNetSound("small")
+    # the small variant is ported (tests/test_torch_reconstruct.py); no third one exists
+    assert UNetSound("small").variant == "small"
+    with pytest.raises(ValueError, match="medium"):
+        UNetSound("medium")
