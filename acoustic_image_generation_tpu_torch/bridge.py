@@ -34,6 +34,7 @@ pytree; int8 HWIO weights become the kernels' (O, kh*kw*I)).
 
 from __future__ import annotations
 
+import warnings
 from collections.abc import Mapping
 
 import numpy as np
@@ -126,6 +127,15 @@ def targets(task: torch.nn.Module):
     return out
 
 
+def _strided(a: np.ndarray) -> torch.Tensor:
+    """A tensor over ``a``'s memory, strides kept (a read-only buffer, such
+    as a checkpoint's, is only read): torch's strided copies of the layout
+    transforms run on all cores, numpy's on one."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # a read-only buffer: the tensor is only copied from
+        return torch.from_numpy(a)
+
+
 def _flatten(tree: Mapping, prefix=()) -> dict:
     flat = {}
     for k, v in tree.items():
@@ -145,13 +155,13 @@ def load_flax(task: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> N
     for tensor, coll, path, fn in targets(task):
         if path not in trees[coll]:
             raise KeyError(f"no flax {coll} leaf {'/'.join(path)} for a port tensor")
-        value = np.array(fn(np.asarray(trees[coll][path], np.float32)), order="C")
+        value = fn(np.asarray(trees[coll][path], np.float32))
         if value.shape != tuple(tensor.shape):
             raise ValueError(
                 f"{coll} {'/'.join(path)}: {value.shape} does not fit port tensor {tuple(tensor.shape)}"
             )
         with torch.no_grad():
-            tensor.copy_(torch.from_numpy(value))
+            tensor.copy_(_strided(value))
         used.add((coll, path))
         covered.add(id(tensor))
     left = sorted("/".join((c, *p)) for c, t in trees.items() for p in t if (c, p) not in used)
@@ -228,5 +238,5 @@ def to_flax(task: torch.nn.Module) -> tuple[dict, dict]:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         value = tensor.detach().to("cpu", torch.float32).numpy()
-        node[path[-1]] = np.array(_INVERSE[fn](value), order="C")
+        node[path[-1]] = _strided(_INVERSE[fn](value)).clone(memory_format=torch.contiguous_format).numpy()
     return trees["params"], trees["batch_stats"]

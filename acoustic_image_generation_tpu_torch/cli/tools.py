@@ -3,7 +3,13 @@
     python -m acoustic_image_generation_tpu_torch.cli.tools iou CHECKPOINT [--out_dir D] -- <main flags>
     python -m acoustic_image_generation_tpu_torch.cli.tools auc DIR
     python -m acoustic_image_generation_tpu_torch.cli.tools generate CHECKPOINT OUT_DIR \\
-        [--set testing] [--energy] -- <main flags>
+        [--set testing] [--energy] [--artifact DIR] -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools export-serving CHECKPOINT OUT_DIR \\
+        [--energy] [--use_mean] [--batch poly|N] [--platforms cuda,cpu] -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools serve ARTIFACT_DIR [--host H] [--port P] [--device cuda]
+    python -m acoustic_image_generation_tpu_torch.cli.tools serve-info ARTIFACT_DIR [--json]
+    python -m acoustic_image_generation_tpu_torch.cli.tools show CHECKPOINT OUT_DIR [--num_images 4] -- <main flags>
+    python -m acoustic_image_generation_tpu_torch.cli.tools show-video CHECKPOINT OUT_DIR [--alpha 0.7] -- <main flags>
     python -m acoustic_image_generation_tpu_torch.cli.tools export-tf1 CHECKPOINT OUT_PATH -- <main flags>
     python -m acoustic_image_generation_tpu_torch.cli.tools extract CHECKPOINT OUT_DIR \\
         [--set testing] [--mean] -- <main flags>
@@ -17,13 +23,16 @@ names, with the same files (``intersection_{t}_accuracy.txt``,
 ``area.txt``, ``{set}_generated.npy``, ``{set}_labels.npy``,
 ``{set}_energy.npy``; the TF1 ``OUT_PATH.index`` and data shard;
 ``{set}_{modality}_{epoch}/`` feature directories, ``{set}_knn_value.txt``,
-``{set}_retrieval.txt``). ``<main flags>`` are ``cli.main``'s (``--device``
-included); ``knn`` and ``retrieve`` take ``--device`` themselves (the
-distances run there, ``cuda`` by default). A subcommand's own options come
-before its positional arguments. ``generate`` serves from a checkpoint; the
-JAX package's ``--artifact`` branch (a StableHLO serving artifact) waits for
-the serving export (``ROADMAP.md`` Queue 1, item 8), and the other
-subcommands for their modules.
+``{set}_retrieval.txt``; the serving artifact's ``weights.msgpack`` and
+``manifest.json``; ``overlay_{i}.png``, ``channels_{i}.png`` and
+``I_{n:06d}.png``). ``<main flags>`` are ``cli.main``'s (``--device``
+included); ``knn``, ``retrieve`` and ``serve`` take ``--device`` themselves
+(``cuda`` by default). A subcommand's own options come before its
+positional arguments. ``generate --artifact DIR`` serves from a port
+artifact (``core/serving.py``; the checkpoint positional is then ignored);
+``export-serving`` writes one for the generation, classification,
+embedding, projection and joint recipes. ``show`` and ``show-video`` render
+with matplotlib, which they import when they run.
 """
 
 from __future__ import annotations
@@ -88,31 +97,57 @@ def cmd_auc(args) -> int:
 
 def cmd_generate(args) -> int:
     """Generated acoustic images of a split, from (MFCC, video) with a
-    trained checkpoint: ``{set}_generated.npy`` (N,36,48,C), its labels
-    and, with ``--energy``, the ``find_logen`` energy maps. With
-    ``--trunk_quant int8`` the trunk is calibrated on the first batch."""
-    if args.artifact:
-        raise NotImplementedError("--artifact needs the serving export, which is not ported "
-                                  "(ROADMAP.md Queue 1, item 8)")
+    trained checkpoint, or with ``--artifact DIR`` from a serving artifact:
+    ``{set}_generated.npy`` (N,36,48,C), its labels and, with ``--energy``,
+    the ``find_logen`` energy maps. With ``--trunk_quant int8`` the trunk is
+    calibrated on the first batch. Batch ``i``'s noise is
+    ``step_generator(seed, i)``'s either way, so the artifact's images are
+    the checkpoint's."""
     import torch
 
     from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
     from acoustic_image_generation_tpu_torch.train.trainer import as_raw, step_generator
 
-    config, task, trainer, loader, _ = _restored(args, args.set)
+    if args.artifact:
+        from acoustic_image_generation_tpu_torch.cli.main import build_parser, config_from_args, make_loader
+        from acoustic_image_generation_tpu_torch.core.serving import load_artifact
+        from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+        main_args = build_parser().parse_args(_strip(args.train_flags))
+        config = config_from_args(main_args)
+        model = load_artifact(args.artifact, device=main_args.device)
+        if model.kind != "generation":
+            print(f"--artifact points at a {model.kind} artifact; generate needs a generation one")
+            return 2
+        if args.energy and not model.manifest["energy"]:
+            print("artifact was exported without --energy")
+            return 2
+        trainer, loader = Trainer(model.task, config), make_loader(config, args.set)
+        if loader is None:
+            raise SystemExit(f"no list file for the {args.set} split")
+
+        def step(raw, i):
+            with torch.no_grad():
+                batch = trainer._prepare(raw)
+            out = model.generate(batch.mfcc, batch.video, generator=step_generator(config.run.seed, i, model.device))
+            return out if model.manifest["energy"] else (out, None)
+    else:
+        config, task, trainer, loader, _ = _restored(args, args.set)
+
+        def step(raw, i):
+            trainer._maybe_build_qtrunk(raw)
+            with torch.no_grad():
+                batch = trainer._prepare(raw)
+                gen = task.generate(batch.mfcc, batch.video, generator=step_generator(config.run.seed, i, task.device),
+                                    qtrunk=trainer.qtrunk)
+                return gen.cpu().numpy(), find_logen(gen).cpu().numpy() if args.energy else None
     outs, energies, labels = [], [], []
     for i, raw_batch in enumerate(loader.batches(0)):
-        raw = as_raw(raw_batch)
-        trainer._maybe_build_qtrunk(raw)
-        with torch.no_grad():
-            batch = trainer._prepare(raw)
-            gen = task.generate(batch.mfcc, batch.video, generator=step_generator(config.run.seed, i, task.device),
-                                qtrunk=trainer.qtrunk)
-            energy = find_logen(gen) if args.energy else None
+        gen, energy = step(as_raw(raw_batch), i)
         n = raw_batch.valid * raw_batch.frames
-        outs.append(gen[:n].cpu().numpy())
-        if energy is not None:
-            energies.append(energy[:n].cpu().numpy())
+        outs.append(gen[:n])
+        if args.energy:
+            energies.append(energy[:n])
         labels.append(np.repeat(raw_batch.action[: raw_batch.valid], raw_batch.frames))
     if not outs:
         raise SystemExit(f"the {args.set} split has no batches")
@@ -122,6 +157,141 @@ def cmd_generate(args) -> int:
     if args.energy:
         np.save(os.path.join(args.out_dir, f"{args.set}_energy.npy"), np.concatenate(energies))
     print(f"generated {sum(o.shape[0] for o in outs)} acoustic images -> {args.out_dir}")
+    return 0
+
+
+def cmd_export_serving(args) -> int:
+    """A trained checkpoint as a serving artifact (``core/serving.py``):
+    the recipe of the main flags picks the kind (the generator, with its
+    calibrated int8 trunk under ``--trunk_quant int8``; DualCamNet; the
+    embedding VAEs; the projection or joint model). An export the artifact
+    cannot hold (``--energy`` on a 13-channel recipe, ``--fused_qgemm``,
+    the plain joint variant, another platform) prints why and exits 2."""
+    from acoustic_image_generation_tpu_torch.cli.main import make_loader
+    from acoustic_image_generation_tpu_torch.core import serving
+    from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
+    from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
+    from acoustic_image_generation_tpu_torch.train.joint import JointTask
+    from acoustic_image_generation_tpu_torch.train.project import ProjectTask
+    from acoustic_image_generation_tpu_torch.train.trainer import as_raw
+
+    _, task, trainer, _, _ = _restored(args, None)
+    kw = dict(batch=args.batch, platforms=tuple(args.platforms.split(",")))
+    try:
+        if isinstance(task, GenerationTask):
+            if task.cfg.trunk_quant == "int8" and not task.cfg.fused_qgemm:
+                loader = make_loader(trainer.config, "training")
+                first = None if loader is None else next(iter(loader.batches(0)), None)
+                if first is None:
+                    print("no training batch to calibrate the int8 trunk on")
+                    return 2
+                trainer._maybe_build_qtrunk(as_raw(first))
+            manifest = serving.export_generation(task, args.out_dir, energy=args.energy, qtrunk=trainer.qtrunk,
+                                                 spatial_shards=args.spatial_shards, **kw)
+        elif isinstance(task, ClassificationTask):
+            manifest = serving.export_classification(task, args.out_dir, **kw)
+        elif isinstance(task, EmbedTask):
+            manifest = serving.export_embedding(task, args.out_dir, use_mean=args.use_mean, **kw)
+        elif isinstance(task, ProjectTask):
+            manifest = serving.export_projection(task, args.out_dir, **kw)
+        elif isinstance(task, JointTask):
+            manifest = serving.export_joint(task, args.out_dir, **kw)
+        else:
+            print("export-serving supports the generation, classification, embedding, projection and joint "
+                  f"recipes; the flags selected {type(task).__name__}")
+            return 2
+    except ValueError as e:
+        print(f"export-serving: {e}")
+        return 2
+    print(f"exported {manifest['kind']} artifact: {manifest['weights_bytes']} weight bytes "
+          f"(platforms {','.join(manifest['platforms'])}) -> {args.out_dir}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Serve an artifact over HTTP (``core/server.py``): npz in and out,
+    ``/manifest`` and ``/healthz``, one request at a time."""
+    from acoustic_image_generation_tpu_torch.core.server import ArtifactServer
+
+    try:
+        server = ArtifactServer(args.artifact_dir, host=args.host, port=args.port,
+                                max_body_bytes=args.max_body_mb << 20, device=args.device)
+    except (FileNotFoundError, ValueError, RuntimeError) as e:
+        print(f"serve: {e}")
+        return 2
+    print(f"serving {server.model.kind} artifact on http://{server.host}:{server.port} (POST /call, GET /manifest)",
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+    return 0
+
+
+def cmd_serve_info(args) -> int:
+    """An artifact's manifest (kind, signature, platforms, digests, sizes),
+    read without loading the weights."""
+    path = os.path.join(args.artifact_dir, "manifest.json")
+    if not os.path.exists(path):
+        print(f"no manifest.json under {args.artifact_dir}")
+        return 2
+    with open(path) as f:
+        manifest = json.load(f)
+    if args.json:
+        print(json.dumps(manifest, indent=2))
+        return 0
+    print(f"format:    {manifest.get('format')}")
+    print(f"kind:      {manifest.get('kind', 'generation')}")
+    print(f"platforms: {','.join(manifest.get('platforms', []))}")
+    print(f"batch:     {manifest.get('batch')}")
+    for name, shape in manifest.get("inputs", {}).items():
+        print(f"input:     {name} {shape}")
+    print(f"outputs:   {', '.join(manifest.get('outputs', []))}")
+    for k in ("energy", "spatial_shards", "trunk_quant", "num_classes", "num_frames", "mfccmap", "latent_dim",
+              "use_mean", "encoder_type", "fusion", "variant"):
+        if k in manifest:
+            print(f"{k + ':':<11}{manifest[k]}")
+    if "model" in manifest:
+        print(f"model:     {manifest['model'].get('task')}")
+    print(f"weights:   sha256:{manifest.get('weights_sha256', '')[:16]}...")
+    print(f"file:      weights.msgpack {manifest.get('weights_bytes', 0):,} bytes")
+    return 0
+
+
+def cmd_show(args) -> int:
+    """Energy overlays and channel grids of the test split's first batch
+    with a generation checkpoint: ``overlay_{i}.png`` (real, generated,
+    union, intersection over the frame) and ``channels_{i}.png``."""
+    from acoustic_image_generation_tpu_torch.evaluation.overlay import save_overlay_grid
+    from acoustic_image_generation_tpu_torch.evaluation.plots import save_channel_grid
+    from acoustic_image_generation_tpu_torch.evaluation.show_video import show_step
+    from acoustic_image_generation_tpu_torch.train.trainer import as_raw, step_generator
+
+    config, task, _, loader, _ = _restored(args, "testing")
+    first = next(iter(loader.batches(0)), None)
+    if first is None:
+        print("the testing split has no batches")
+        return 2
+    out = show_step(task, as_raw(first), generator=step_generator(config.run.seed, 0, task.device))
+    os.makedirs(args.out_dir, exist_ok=True)
+    n = min(args.num_images, out["real"].shape[0])
+    for h in range(n):
+        save_overlay_grid(os.path.join(args.out_dir, f"overlay_{h}.png"), out["video"][h], out["real_mask"][h],
+                          out["generated_mask"][h])
+        save_channel_grid(os.path.join(args.out_dir, f"channels_{h}.png"), out["real"][h], out["generated"][h])
+    print(f"wrote {2 * n} images to {args.out_dir}")
+    return 0
+
+
+def cmd_show_video(args) -> int:
+    """Per-frame energy overlays over the whole test split, ``I_000001.png``
+    on, ready for ``ffmpeg -i I_%06d.png out.mp4``."""
+    from acoustic_image_generation_tpu_torch.evaluation.show_video import render_video_overlays
+
+    config, task, _, loader, _ = _restored(args, "testing")
+    paths = render_video_overlays(task, loader, args.out_dir, alpha=args.alpha, seed=config.run.seed)
+    print(f"wrote {len(paths)} frames to {args.out_dir}")
     return 0
 
 
@@ -255,9 +425,53 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("out_dir")
     s.add_argument("--set", default="testing", choices=["training", "validation", "testing"])
     s.add_argument("--energy", action="store_true", help="also write inverted spatial energy maps")
-    s.add_argument("--artifact", default=None, help="a serving artifact dir: not ported, raises")
+    s.add_argument("--artifact", default=None,
+                   help="serve from an export-serving artifact dir (the checkpoint positional is then ignored)")
     s.add_argument("train_flags", nargs=argparse.REMAINDER)
     s.set_defaults(fn=cmd_generate)
+
+    s = sub.add_parser("export-serving", help="write a trained model as a serving artifact")
+    s.add_argument("checkpoint")
+    s.add_argument("out_dir")
+    s.add_argument("--energy", action="store_true", help="generation: the find_logen energy map as a second output")
+    s.add_argument("--use_mean", action="store_true", help="embedding: serve the latent means instead of sampled z")
+    s.add_argument("--spatial_shards", type=int, default=1,
+                   help="generation: over N devices (more than 1 waits for DDP/FSDP and raises)")
+    s.add_argument("--batch", default="poly", help='"poly" (default, any batch size) or a fixed int')
+    s.add_argument("--platforms", default="cuda,cpu", help="comma-separated platforms the artifact serves on")
+    s.add_argument("--external_weights", action="store_true",
+                   help="accepted for the JAX package's command line: the port's weights always sit beside the "
+                        "manifest")
+    s.add_argument("train_flags", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_export_serving)
+
+    s = sub.add_parser("serve", help="serve an artifact over HTTP (npz in/out)")
+    s.add_argument("artifact_dir")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8321)
+    s.add_argument("--max_body_mb", type=int, default=1024,
+                   help="reject request bodies, and arrays as their headers declare them, larger than this (413)")
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("serve-info", help="print a serving artifact's manifest")
+    s.add_argument("artifact_dir")
+    s.add_argument("--json", action="store_true", help="raw manifest JSON")
+    s.set_defaults(fn=cmd_serve_info)
+
+    s = sub.add_parser("show", help="energy overlay + channel-grid renders (matplotlib)")
+    s.add_argument("checkpoint")
+    s.add_argument("out_dir")
+    s.add_argument("--num_images", type=int, default=4)
+    s.add_argument("train_flags", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_show)
+
+    s = sub.add_parser("show-video", help="per-frame energy-overlay renders over the test split (matplotlib)")
+    s.add_argument("checkpoint")
+    s.add_argument("out_dir")
+    s.add_argument("--alpha", type=float, default=0.7)
+    s.add_argument("train_flags", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_show_video)
 
     s = sub.add_parser("export-tf1", help="export a trained checkpoint as a reference TF1 .ckpt")
     s.add_argument("checkpoint")

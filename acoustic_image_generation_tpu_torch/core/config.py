@@ -128,7 +128,7 @@ class OptimConfig:
     huber: bool = True
     bce: bool = False
     resnet_weight_decay: float = 5e-4
-    tf1_adam: bool = True  # the port has TF1 Adam only
+    tf1_adam: bool = True  # False: optax.adam's numerics (train/optim.py::Adam)
 
 
 @dataclass(frozen=True)
@@ -202,16 +202,15 @@ def _build(cls, values: dict):
 
 def generation_config(config: ExperimentConfig) -> GenerationConfig:
     """The port's ``GenerationConfig`` of an experiment. Raises for what
-    the port does not run: more than one device, FSDP, tensor parallelism,
-    or Adam without TF1's numerics."""
+    the port does not run: more than one device, FSDP or tensor
+    parallelism. ``optim.tf1_adam`` is the trainer's (``Trainer.
+    init_state``)."""
     par = config.parallel
     if (par.num_devices or 1) > 1 or par.fsdp or par.tensor_parallel > 1:
         raise NotImplementedError(
             "the port trains on one device: num_devices > 1, fsdp and tensor_parallel > 1 wait for "
             "DDP/FSDP over NCCL (ROADMAP.md Queue 1, item 8)"
         )
-    if not config.optim.tf1_adam:
-        raise NotImplementedError("the port's optimizer is TF1 Adam only (optim.tf1_adam=True)")
     m, o = config.model, config.optim
     return GenerationConfig(
         num_skip_conn=m.num_skip_conn,
@@ -244,7 +243,7 @@ def classify_config(config: ExperimentConfig, *, generated: bool = False) -> Cla
     """The port's ``ClassifyConfig`` of an experiment (classes and channels
     by ``data.datatype``); ``generated`` adds the frozen generator's
     ``GenerationConfig``. Raises as ``generation_config`` does."""
-    gen = generation_config(config)  # the one-device and TF1 Adam checks
+    gen = generation_config(config)  # the one-device check
     d = config.data
     return ClassifyConfig(
         num_classes=d.num_classes,
@@ -267,7 +266,7 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     variant flags, and the spectrogram statistics' directory (``data.
     stats_dir``, else ``stats2s`` beside the training list, as JAX's
     ``_load_spec_stats``). Raises as ``generation_config`` does."""
-    generation_config(config)  # the one-device and TF1 Adam checks
+    generation_config(config)  # the one-device check
     d, m, o = config.data, config.model, config.optim
     stats_dir = d.stats_dir
     if stats_dir is None and d.train_file:
@@ -290,8 +289,8 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
 
 
 def _common(config: ExperimentConfig) -> dict:
-    """The fields every task configuration takes, after the one-device and
-    TF1 Adam checks of ``generation_config``."""
+    """The fields every task configuration takes, after the one-device
+    check of ``generation_config``."""
     generation_config(config)
     return dict(num_channels=config.data.num_channels, compute_dtype=config.parallel.compute_dtype,
                 learning_rate=config.optim.learning_rate, seed=config.run.seed)

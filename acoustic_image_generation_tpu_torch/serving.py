@@ -19,6 +19,11 @@ counterpart of the ``serve`` function that ``core/serving.py::
 export_embedding`` exports. It runs only the three encoders and VAE heads
 (``EmbedTask.encode``): the decoders do not feed the latents, and XLA drops
 them from JAX's jitted ``embeddings``, so the numbers are the same.
+
+``GenerationService.generate``, ``ClassificationService``,
+``EmbeddingService`` and ``ProjectionService`` (projection and joint
+tasks) answer the model-ready requests of the serving artifacts
+(``core/serving.py``), which are built on them.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from acoustic_image_generation_tpu_torch import (
     VIDEO_H,
     VIDEO_W,
 )
-from acoustic_image_generation_tpu_torch.data.preprocess import Batch, preprocess_batch
+from acoustic_image_generation_tpu_torch.data.preprocess import Batch, preprocess_batch, tile_mfccmap
 from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
 from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
+from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
 
@@ -77,16 +83,51 @@ class GenerationService:
             raise ValueError(f"{audio.shape[0]} audio frames but {video.shape[0]} video frames")
         with torch.inference_mode(), no_tf32():
             batch = preprocess_batch(audio, video)
+            return self.generate(batch.mfcc, batch.video, seed, eps=eps)
+
+    def generate(self, mfcc, video, seed: int = 0, *, eps=None, generator=None, energy: bool = True):
+        """Model-ready inputs, the serving artifact's (``core/serving.py``):
+        float32 ``mfcc`` (N,12) and ``video`` (N,224,298,3) in [0, 1] ->
+        (generated (N,36,48,12) float32, energy (N,36,48) float32, or None
+        without ``energy``). The noise is ``eps``, else ``generator``'s,
+        else a generator's on the task's device seeded with ``seed``."""
+        f32 = torch.float32
+        mfcc = _as_tensor(mfcc, f32, (12,), "mfcc", self.device)
+        video = _as_tensor(video, f32, (VIDEO_H, VIDEO_W, 3), "video", self.device)
+        if mfcc.shape[0] != video.shape[0]:
+            raise ValueError(f"{mfcc.shape[0]} mfcc frames but {video.shape[0]} video frames")
+        with torch.inference_mode(), no_tf32():
             if self.task.cfg.trunk_quant == "int8" and self.qtrunk is None:
-                self.qtrunk = self.task.build_qtrunk(batch.video)
-            generator = None
-            if eps is None:
+                self.qtrunk = self.task.build_qtrunk(video)
+            if eps is not None:
+                eps, generator = torch.as_tensor(eps, device=self.device), None
+            elif generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(seed)
-            else:
-                eps = torch.as_tensor(eps, device=self.device)
-            gen = self.task.generate(batch.mfcc, batch.video, eps=eps, generator=generator,
-                                     qtrunk=self.qtrunk)
-            return gen, find_logen(gen)
+            gen = self.task.generate(mfcc, video, eps=eps, generator=generator, qtrunk=self.qtrunk)
+            return gen, find_logen(gen) if energy else None
+
+
+class ClassificationService:
+    """Holds a classification task (DualCamNet) on one device and answers
+    requests of whole clips: the ``serve`` function of ``core/serving.py::
+    export_classification``."""
+
+    def __init__(self, task: ClassificationTask):
+        self.task = task.eval()
+        self.device = task.device
+
+    def __call__(self, inputs) -> torch.Tensor:
+        """float32 per-frame acoustic images (N*F,36,48,C), or MFCC vectors
+        (N*F,12) with ``mfccmap`` (tiled to the map here), F the task's
+        frames a clip -> clip logits (N, K) float32."""
+        c = self.task.cfg.num_channels
+        tail = (12,) if self.task.cfg.mfccmap else (SPATIAL_H, SPATIAL_W, c)
+        x = _as_tensor(inputs, torch.float32, tail, "inputs", self.device)
+        frames = self.task.num_frames
+        if x.shape[0] == 0 or x.shape[0] % frames:
+            raise ValueError(f"a request is whole clips of {frames} frames, got {x.shape[0]} frames")
+        with torch.inference_mode(), no_tf32():
+            return self.task.logits(tile_mfccmap(x) if self.task.cfg.mfccmap else x)
 
 
 class EmbeddingService:
@@ -126,3 +167,36 @@ class EmbeddingService:
                 generator = torch.Generator(device=self.device).manual_seed(seed)
             z = self.task.embeddings(batch, use_mean=use_mean, eps=eps, generator=generator)
             return z["acoustic"], z["audio"], z["video"]
+
+
+class ProjectionService:
+    """Holds a ``ProjectTask`` or a ``JointTask`` on one device and answers
+    requests of whole seconds: acoustic images from audio and video alone,
+    the ``serve`` functions of ``core/serving.py::export_projection`` and
+    ``export_joint`` (the tasks' ``project``)."""
+
+    def __init__(self, task):
+        self.task = task.eval()
+        self.device = task.device
+
+    def __call__(self, audio, video, seed: int = 0, *, eps=None):
+        """float32 ``audio`` (N,1024) samples and ``video`` (N,224,298,3) in
+        [0, 1], N a multiple of 12 -> generated acoustic images (N/12,36,48,C)
+        float32. The noise is ``eps`` (N/12, 150), else a generator's on the
+        task's device seeded with ``seed``."""
+        f32 = torch.float32
+        audio = _as_tensor(audio, f32, (NUM_SAMPLES_PER_FRAME,), "audio", self.device)
+        video = _as_tensor(video, f32, (VIDEO_H, VIDEO_W, 3), "video", self.device)
+        n = audio.shape[0]
+        if video.shape[0] != n:
+            raise ValueError(f"{n} audio and {video.shape[0]} video frames")
+        if n == 0 or n % FRAMES_PER_SECOND:
+            raise ValueError(f"a request is whole seconds of {FRAMES_PER_SECOND} frames, got {n} frames")
+        with torch.inference_mode(), no_tf32():
+            batch = Batch(audio=audio.contiguous(), mfcc=None, video=video)
+            generator = None
+            if eps is not None:
+                eps = torch.as_tensor(eps, dtype=f32, device=self.device)
+            else:
+                generator = torch.Generator(device=self.device).manual_seed(seed)
+            return self.task.project(batch, eps=eps, generator=generator)

@@ -111,11 +111,12 @@ class JointTask(nn.Module):
         return self
 
     def inputs(self, batch: Batch):
-        """Per second: the first acoustic frame (S,36,48,C), the resized
-        spectrogram (S,193,257,1) f32 and the first video frame."""
+        """Per second: the first acoustic frame (S,36,48,C; None without the
+        batch's), the resized spectrogram (S,193,257,1) f32 and the first
+        video frame."""
         f = FRAMES_PER_SECOND
         spec = resize_frames(stft(batch.audio.reshape(-1, SAMPLES_PER_SECOND)))[..., None]
-        return batch.acoustic[::f], spec, batch.video[::f]
+        return None if batch.acoustic is None else batch.acoustic[::f], spec, batch.video[::f]
 
     def _fuse(self, inputs, keep=None, acoustic_features=False):
         """The frozen encoders' feature maps (the acoustic one times
@@ -208,6 +209,24 @@ class JointTask(nn.Module):
             _, mean, std = getattr(self, model).vae(fmap)
             out[name] = mean.float() if use_mean else mean.float() + std.float() * eps[model]
         return out
+
+    def project(self, batch: Batch, *, eps=None, generator=None) -> torch.Tensor:
+        """Acoustic images (S,36,48,C) f32 from the batch's audio and video
+        alone, eval mode: the frozen video and audio encoders' maps, the
+        acoustic map of ``associator1`` (``onlyaudiovideo``) or of the
+        ``fusion`` associator, and the acoustic stage 2 sampled with
+        ``eps`` (S,150) (or ``generator``'s draw). The plain variant's
+        associator reads real acoustic features: it has no such path."""
+        if not (self.cfg.onlyaudiovideo or self.cfg.fusion):
+            raise ValueError("acoustic images from audio and video need --onlyaudiovideo or --fusion (the plain "
+                             "jointmvae associator consumes real acoustic features)")
+        _, spec, video = self.inputs(batch)
+        with torch.no_grad():
+            f_vi = self.video.features(video, train=False)
+            f_au = self.audio.features(spec, train=False)
+        head = self.associator1 if self.cfg.onlyaudiovideo else self.associator
+        noise = self._noise(f_vi.shape[0], ("acoustic",), None if eps is None else {"acoustic": eps}, generator)
+        return self._stage2("acoustic", head(f_vi, f_au)["ac"], noise["acoustic"]).output.float()
 
     def eval_losses(self, batch: Batch, *, eps=None, generator=None, **unused):
         """Eval-mode forward through the acoustic stage 2 alone (JAX's reads

@@ -134,14 +134,16 @@ class ProjectTask(nn.Module):
         return self
 
     def inputs(self, batch: Batch):
-        """Per second: the first acoustic frame (S,36,48,C), the resized
-        spectrogram (S,193,257,1) f32 (None for the ``Video`` wiring) and the
-        first video frame (None for the ``Audio`` wiring)."""
+        """Per second: the first acoustic frame (S,36,48,C; None without the
+        batch's), the resized spectrogram (S,193,257,1) f32 (None for the
+        ``Video`` wiring) and the first video frame (None for the ``Audio``
+        wiring)."""
         f = FRAMES_PER_SECOND
         spec = None
         if self.wiring != "Video":
             spec = resize_frames(stft(batch.audio.reshape(-1, SAMPLES_PER_SECOND)))[..., None]
-        return batch.acoustic[::f], spec, batch.video[::f] if self.reads_video else None
+        ac = None if batch.acoustic is None else batch.acoustic[::f]
+        return ac, spec, batch.video[::f] if self.reads_video else None
 
     def _associate(self, spec, video, *, train: bool):
         """The translated (mean, std) and each associator's, in the compute
@@ -222,6 +224,17 @@ class ProjectTask(nn.Module):
         names = ["acoustic"] + {"Video": ["video"], "Audio": ["audio"], "fusion": ["video", "audio"]}[self.wiring]
         return {n: m.float() if use_mean else m.float() + s.float() * eps.to(self.device)
                 for n, (m, s) in zip(names, heads)}
+
+    def project(self, batch: Batch, *, eps=None, generator=None) -> torch.Tensor:
+        """Acoustic images (S,36,48,C) f32 from the batch's audio and video
+        alone, eval mode: the translated latent sampled with ``eps`` (S,150)
+        (or ``generator``'s draw) and decoded by the acoustic VAE, as
+        ``_forward`` decodes it. JAX's exported projection feeds the acoustic
+        VAE zeros, whose encoder does not reach the output."""
+        _, spec, video = self.inputs(batch)
+        mean, std, _ = self._associate(spec, video, train=False)
+        noise = self._noise(mean.shape[0], None if eps is None else {"latent": eps}, generator, ("latent",))
+        return self.acoustic.decode(mean + std * noise["latent"].to(std.dtype)).float()
 
     def eval_losses(self, batch: Batch, *, eps=None, generator=None, **unused):
         """Eval-mode forward, sampled as JAX's is: ``({"mse": (seconds,)

@@ -13,11 +13,11 @@ from dataclasses import dataclass
 
 import torch
 
-from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
+from acoustic_image_generation_tpu_torch.train.optim import Adam, TF1Adam
 
 
 @dataclass
 class TrainState:
     step: int
     task: torch.nn.Module  # params + BN running statistics
-    optimizer: TF1Adam  # Adam slots of the trainable parameters only
+    optimizer: TF1Adam | Adam  # Adam slots of the trainable parameters only

@@ -7,7 +7,7 @@ Counterpart of ``acoustic_image_generation_tpu/train/trainer.py::Trainer``
 step variants, ``_eval_step_impl``, ``evaluate`` and
 ``_maybe_build_qtrunk``, ``fit``, ``test``, ``save``, ``restore`` and
 ``_log_media``): raw clips -> device preprocessing -> train-mode
-forward and loss -> backward -> TF1 Adam on the trainable parameters. JAX
+forward and loss -> backward -> Adam on the trainable parameters. JAX
 runs it as one jitted program; here it runs eagerly on the task's device and
 updates the state in place, the BN running averages of train-mode BNs
 included. A task whose ``reads_mfcc`` is false (``EmbedTask``,
@@ -94,7 +94,7 @@ from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
-from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
+from acoustic_image_generation_tpu_torch.train.optim import Adam, TF1Adam
 from acoustic_image_generation_tpu_torch.train.state import TrainState
 
 RAW_KEYS = ("acoustic", "audio", "video", "action", "location", "valid", "window_ids")
@@ -184,11 +184,14 @@ class Trainer:
                 self.device_cache = fc.DeviceFeatureCache(cfg.cache_device_bytes)
 
     def init_state(self) -> TrainState:
-        """Step 0 and TF1 Adam over the task's trainable parameters (those
-        that require grad; the frozen ones get no slots). The parameters are
-        the task's as they stand: ``init_params`` or ``bridge.load_flax``."""
+        """Step 0 and Adam over the task's trainable parameters (those that
+        require grad; the frozen ones get no slots): TF1's numerics, or
+        ``optax.adam``'s with ``optim.tf1_adam=False``, as JAX's trainer
+        picks. The parameters are the task's as they stand: ``init_params``
+        or ``bridge.load_flax``."""
         trainable = [p for p in self.task.parameters() if p.requires_grad]
-        return TrainState(step=0, task=self.task, optimizer=TF1Adam(trainable, self.cfg.learning_rate))
+        adam = TF1Adam if self.config.optim.tf1_adam else Adam
+        return TrainState(step=0, task=self.task, optimizer=adam(trainable, self.cfg.learning_rate))
 
     def _prepare(self, raw: dict, *, generator: torch.Generator | None = None, train: bool = True) -> Batch:
         """``prepare`` on the task's device, with the MFCC frontend and the
@@ -242,7 +245,7 @@ class Trainer:
         return as_tensor(eps), None
 
     def train_step(self, state: TrainState, raw, *, eps=None, moddrop=None) -> tuple[TrainState, dict]:
-        """One step: prepare, loss and grads, TF1 Adam, BN statistics
+        """One step: prepare, loss and grads, Adam, BN statistics
         updated. ``raw``: a ``RawBatch`` or a dict; with the feature cache on
         and ``window_ids`` given, the step runs on cached trunk features.
         ``eps`` replaces the step's noise: (frames, 150) for the generation

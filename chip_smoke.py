@@ -8,6 +8,7 @@
     python3 chip_smoke.py --classify
     python3 chip_smoke.py --embed-workflow
     python3 chip_smoke.py --task-families
+    python3 chip_smoke.py --serving
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -18,7 +19,8 @@ such as a parent commit's, with ``--package-root``), ``--cached`` phase 10
 alone, ``--workflow`` phase 11 alone, ``--classify`` phase 12 alone (with
 the ``sosfilt`` check), ``--embed-workflow`` phase 13 alone,
 ``--task-families`` phase 14 alone (with the ``conv_chain`` checks at
-UNetEnergy's chains); none prints a result line. Phases, each fatal on
+UNetEnergy's chains), ``--serving`` phase 15 alone (on its own shards and
+a checkpoint of random weights); none prints a result line. Phases, each fatal on
 failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
@@ -149,10 +151,36 @@ failure:
    warm-started from the projection's checkpoint (their VAEs bit-equal to
    the source), each with a falling validation MSE, ``--mode test``,
    ``tools extract`` and ``tools knn``;
-15. print the card's name and power limit, one ``{"kernels": [...]}`` line
+15. serving artifacts, at full width, bf16, random weights from the seed:
+   a generation artifact with its energy map (polymorphic batch), an int8
+   one at a fixed batch of 96 frames (the unfused trunk), DualCamNet's, the
+   embedding VAEs', a projection (``fusion``) and a joint
+   (``onlyaudiovideo``) artifact, each exported (``core/serving.py``), its
+   ``weights_sha256`` held to the digest of its trees, loaded on the card
+   and served 32 96-frame (8-second) requests with the launch counts reset
+   just before and read just after, with export and load seconds, bytes,
+   first latency, the median and quartiles of the rest, and peak memory,
+   the first request equal to the in-process service's on the same weights
+   and seed to the bit; the generation artifact behind ``ArtifactServer``
+   on 127.0.0.1 (the loaded model), 16 requests through ``ArtifactClient``
+   equal to the direct calls' to the bit, with their median and quartiles
+   beside the direct ones, and 400, 413 and 500 for
+   a corrupt body, an 800 GB declared array and an injected model fault; an
+   f32 generation artifact on the card against the CPU; ``tools
+   export-serving`` of phase 11's checkpoint, ``serve-info`` and ``generate
+   --artifact`` equal to ``generate`` from the checkpoint; the box sweep
+   (``run_box_iou_sweep``) over box-annotated synthetic shards on the card
+   (1 ``mfcc`` and 12 ``conv_chain`` a batch) against the CPU; the
+   show-video device step on the card against the CPU; three steps of
+   optax's Adam on the card equal to the CPU's to the bit on the same
+   gradients, and the optimizer step's device time for it and TF1's Adam;
+   two CLI epochs with ``optim.tf1_adam=False`` (optax's Adam), the
+   validation MSE falling, and one resumed epoch;
+16. print the card's name and power limit, one ``{"kernels": [...]}`` line
    (each kernel's launches also over phase 11's passes, ``workflow_launches``,
-   over phase 13's, ``embed_workflow_launches``, and over phase 14's,
-   ``task_families_launches``), and last ``{"ok": true, "device": {...}}``.
+   over phase 13's, ``embed_workflow_launches``, over phase 14's,
+   ``task_families_launches``, and over phase 15's, ``serving_launches``),
+   and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 (set in ``main``), so "f32" means IEEE f32 on both sides.
@@ -3506,6 +3534,491 @@ def check_energy_chains(cc) -> tuple[float, float]:
     return err_f, err_b
 
 
+# ----------------------------------------------------------------------------------------------
+# Phase 15: serving artifacts (core/serving.py), their HTTP server and client (core/server.py,
+# core/client.py), the artifact CLI, the box sweep (evaluation/localize_boxes.py), the renders'
+# device step (evaluation/show_video.py) and optax's Adam (train/optim.py::Adam)
+
+# each kind: launches a request of FRAMES frames (8 seconds for the kinds that take seconds). The
+# generation artifacts take model-ready MFCC, so no mfcc launch; the int8 artifact serves the
+# unfused trunk, so no qgemm_s8; the projection and joint artifacts decode the acoustic image
+# alone (its decoder's 2 chains), the embedding artifact runs the encoders (the acoustic one's 2).
+SERVING_REQUESTS = 32  # a kind's requests: inputs cycled over SERVING_INPUTS draws, a seed each
+SERVING_INPUTS = 8
+HTTP_REQUESTS = 16  # the generation artifact's first requests again, through HTTP
+ADAM_STEPS = 20  # optimizer steps timed for each Adam
+SERVING_KINDS = {
+    "generation": dict(conv_chain=12),
+    "generation int8": dict(conv_chain=12),
+    "classification": {},
+    "embedding": dict(stft=1, conv_chain=4),
+    "projection": dict(stft=1, conv_chain=4),
+    "joint": dict(stft=1, conv_chain=4),
+}
+# the box sweep CUDA against the CPU, f32, ae (no noise): as tests/test_torch_localize_boxes.py
+# holds the port against JAX: each frame's IoU within 0.01 (a mask pixel at its map's mean may fall
+# on the other side), the fractions and the AUC within 1/N of the N frames
+BOX_IOU_TOL = 0.01
+# the render step CUDA against the CPU, f32: the frames within 1e-6, the resized energy maps within
+# 1e-2 relative: PATH_TOL's 1e-3 of the sigmoid output through find_logen's exponentials
+RENDER_TOL = dict(video=1e-6, energy=1e-2)
+
+
+def serving_inputs(kind: str, rng) -> tuple:
+    """One request's model-ready float32 inputs for ``kind``."""
+    video = rng.random((FRAMES, 224, 298, 3), dtype=np.float32)
+    if kind.startswith("generation"):
+        return rng.random((FRAMES, 12), dtype=np.float32), video
+    if kind == "classification":
+        return (rng.random((FRAMES, 36, 48, 12), dtype=np.float32),)
+    audio = rng.integers(-(2**15), 2**15, (FRAMES, 1024)).astype(np.float32)
+    if kind == "embedding":
+        return rng.random((FRAMES, 36, 48, 12), dtype=np.float32), audio, video
+    return audio, video
+
+
+def serving_call(model, kind: str, inputs: tuple, seed: int) -> dict:
+    """A served request as numpy outputs named as the manifest names them."""
+    if kind.startswith("generation"):
+        out = model.generate(*inputs, seed=seed)
+        return dict(zip(model.manifest["outputs"], out if isinstance(out, tuple) else (out,)))
+    if kind == "classification":
+        return {"clip_logits": model.classify(*inputs)}
+    if kind == "embedding":
+        return {f"z_{k}": v for k, v in model.embed(*inputs, seed=seed).items()}
+    return {"generated": model.project(*inputs, seed=seed)}
+
+
+def in_process(task, kind: str, inputs: tuple, seed: int, qtrunk=None) -> dict:
+    """The same request through the in-process service of ``task``, the
+    artifact's source."""
+    from acoustic_image_generation_tpu_torch import serving as services
+
+    if kind.startswith("generation"):
+        gen, energy = services.GenerationService(task, qtrunk).generate(*inputs, seed=seed)
+        return {"generated": gen, "energy": energy}
+    if kind == "classification":
+        return {"clip_logits": services.ClassificationService(task)(*inputs)}
+    if kind == "embedding":
+        return dict(zip(("z_acoustic", "z_audio", "z_video"), services.EmbeddingService(task)(*inputs, seed=seed)))
+    return {"generated": services.ProjectionService(task)(*inputs, seed=seed)}
+
+
+def serving_source(kind: str):
+    """The full-width bf16 task of ``kind`` with random weights from the seed,
+    its export function and arguments, and its int8 trunk."""
+    from acoustic_image_generation_tpu_torch.core import serving
+    from acoustic_image_generation_tpu_torch.data.preprocess import normalize_video
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    if kind == "generation":
+        return GenerationTask(GenerationConfig(), device="cuda").init_params(SEED), serving.export_generation, \
+            dict(energy=True), None
+    if kind == "generation int8":
+        task = GenerationTask(GenerationConfig(trunk_bn="frozen", trunk_quant="int8"), device="cuda").init_params(SEED)
+        video = torch.from_numpy(np.random.default_rng(SEED + 60).integers(0, 256, (FRAMES, 224, 298, 3),
+                                                                          dtype=np.uint8)).cuda()
+        qtrunk = task.build_qtrunk(normalize_video(video))
+        return task, serving.export_generation, dict(qtrunk=qtrunk, batch=FRAMES), qtrunk
+    if kind == "classification":
+        return classify_task("real", "cuda"), serving.export_classification, {}, None
+    if kind == "embedding":
+        return embed_task("bfloat16", "cuda"), serving.export_embedding, {}, None
+    if kind == "projection":
+        return family_task("project", dict(fusion=True), "cuda"), serving.export_projection, {}, None
+    return family_task("joint", dict(onlyaudiovideo=True), "cuda"), serving.export_joint, {}, None
+
+
+def latency(times: list) -> dict:
+    """Median, quartiles and range of request latencies (ms)."""
+    q1, median, q3 = statistics.quantiles(times, n=4, method="inclusive")
+    return dict(median=median, q1=q1, q3=q3, min=min(times), max=max(times))
+
+
+def latency_text(rec: dict) -> str:
+    return (f"median {rec['median']:.2f} ms, quartiles {rec['q1']:.2f}-{rec['q3']:.2f} ms, range "
+            f"{rec['min']:.2f}-{rec['max']:.2f} ms")
+
+
+def serve_artifact(kind: str, counters: dict, root: Path, total: dict) -> tuple[dict, object, list]:
+    """Export ``kind``'s source task, check the manifest's weight digest
+    against its trees, load the artifact on the card, serve SERVING_REQUESTS
+    requests with the launch counts reset just before and read just after,
+    and hold the first request against the in-process service (equal to the
+    bit). Returns the record, the loaded model and the requests' inputs and
+    outputs."""
+    from acoustic_image_generation_tpu_torch import bridge
+    from acoustic_image_generation_tpu_torch.core import serving
+
+    task, export, kw, qtrunk = serving_source(kind)
+    out_dir = root / "artifacts" / kind.replace(" ", "_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manifest = export(task, str(out_dir), **kw)
+    export_s = time.perf_counter() - t0
+    params, stats = bridge.to_flax(task)
+    trees = (params,) if kind == "classification" else (params, stats, bridge.qtrunk_to_tree(qtrunk) if qtrunk else None)
+    if manifest["weights_sha256"] != serving.params_digest(*trees):
+        raise AssertionError(f"{kind}: the manifest's weights_sha256 is not the digest of the task's trees")
+    del params, stats, trees
+    t0 = time.perf_counter()
+    model = serving.load_artifact(str(out_dir))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in out_dir.iterdir())
+    rng = np.random.default_rng(SEED + 61)
+    draws = [serving_inputs(kind, rng) for _ in range(SERVING_INPUTS)]
+    reqs = [draws[i % SERVING_INPUTS] for i in range(SERVING_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = [], []
+    with counted(counters, f"serving {kind}: {SERVING_REQUESTS} artifact requests", need=()) as c:
+        for i, inputs in enumerate(reqs):
+            t0 = time.perf_counter()
+            outs.append(serving_call(model, kind, inputs, SEED + i))
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in c.launches.items():
+        total[k] += v
+    want = {k: v * SERVING_REQUESTS for k, v in SERVING_KINDS[kind].items()}
+    got = {k: v for k, v in c.launches.items() if v or k in want}
+    if got != want:
+        raise AssertionError(f"{kind}: launches {got} over {SERVING_REQUESTS} requests, expected {want}")
+    for name, value in outs[0].items():
+        if not np.isfinite(value).all():
+            raise AssertionError(f"{kind}: {name} not finite")
+    direct = in_process(task, kind, reqs[0], SEED, qtrunk)
+    differ = [k for k in outs[0] if not np.array_equal(outs[0][k], direct[k].cpu().numpy())]
+    if differ or set(direct) - set(outs[0]) - {"energy"}:
+        raise AssertionError(f"{kind}: the artifact's {differ} differ from the in-process service's")
+    rec = dict(export_s=export_s, load_s=load_s, bytes=nbytes, first=times[0], **latency(times[1:]), peak=peak,
+               launches={k: v // SERVING_REQUESTS for k, v in got.items()})
+    log(f"serving {kind} artifact ({card()}): export {export_s:.2f} s, load {load_s:.2f} s, {nbytes / 2**20:.1f} "
+        f"MiB written; first request {rec['first']:.2f} ms, the next {SERVING_REQUESTS - 1}: "
+        f"{latency_text(rec)}; "
+        f"launches a request {rec['launches']}; peak {peak:.3f} GiB; outputs "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in outs[0].items())
+        + "; equal to the in-process service's to the bit; weights_sha256 the trees' digest")
+    del task, qtrunk, direct
+    return rec, model, list(zip(reqs, outs))
+
+
+def http_round_trip(model, served: list, direct: dict) -> dict:
+    """The generation artifact behind ``ArtifactServer`` on 127.0.0.1, port
+    0, holding the loaded model: HTTP_REQUESTS of the direct calls again
+    through ``ArtifactClient``, their outputs equal to the direct calls' to
+    the bit, their latencies beside the direct ones; a corrupt body 400, an
+    oversized declared array 413, an injected model fault 500. Returns the
+    HTTP latencies' ``latency`` record."""
+    import io
+    import urllib.error
+    import urllib.request
+    import zipfile
+
+    from acoustic_image_generation_tpu_torch.core.client import ArtifactClient
+    from acoustic_image_generation_tpu_torch.core.server import ArtifactServer
+
+    server = ArtifactServer(model)
+    server.start()
+    url = f"http://{server.host}:{server.port}"
+    try:
+        client = ArtifactClient(url)
+        if not client.healthy() or client.manifest != model.manifest:
+            raise AssertionError("HTTP: the probes disagree with the loaded model")
+        times = []
+        for i, (inputs, want) in enumerate(served[:HTTP_REQUESTS]):
+            t0 = time.perf_counter()
+            got = client.generate(*inputs, seed=SEED + i)
+            times.append((time.perf_counter() - t0) * 1e3)
+            for name, value in zip(model.manifest["outputs"], got):
+                if not np.array_equal(value, want[name]):
+                    raise AssertionError(f"HTTP request {i}: {name} differs from the direct call's")
+
+        def post(body: bytes) -> int:
+            req = urllib.request.Request(f"{url}/call", data=body, method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        npy = io.BytesIO()
+        np.lib.format.write_array_header_1_0(npy, {"descr": "<f4", "fortran_order": False,
+                                                    "shape": (10**6, 224, 298, 3)})
+        zipped = io.BytesIO()
+        with zipfile.ZipFile(zipped, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("video.npy", npy.getvalue() + bytes(4096))
+        codes = {"corrupt body": post(b"not an npz archive" * 16), "declared 800 GB": post(zipped.getvalue())}
+        generate = model.generate
+
+        def fault(*a, **k):
+            raise RuntimeError("injected fault")
+
+        model.generate = fault
+        try:
+            buf = io.BytesIO()
+            np.savez(buf, mfcc=served[0][0][0], video=served[0][0][1], seed=np.int32(SEED))
+            codes["model fault"] = post(buf.getvalue())
+        finally:
+            model.generate = generate
+    finally:
+        server.shutdown()
+    rec = latency(times[1:])
+    log(f"HTTP ({card()}): {len(times)} generation requests through ArtifactClient equal to the direct calls to the "
+        f"bit; first {times[0]:.2f} ms, the next {len(times) - 1}: {latency_text(rec)} (direct: "
+        f"{latency_text(direct)}); status codes {codes}")
+    if codes != {"corrupt body": 400, "declared 800 GB": 413, "model fault": 500}:
+        raise AssertionError(f"HTTP status codes {codes}")
+    return rec
+
+
+def check_artifact_against_cpu(root: Path) -> None:
+    """One f32 generation artifact (full width, non-zero biases) loaded on
+    the card and on the CPU, two frames with the same noise: the outputs
+    within the serving path's PATH_TOL."""
+    from acoustic_image_generation_tpu_torch.core import serving
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    task = GenerationTask(GenerationConfig(compute_dtype="float32"), device="cpu").init_params(SEED)
+    randomize_biases(task, SEED + 8)
+    out_dir = str(root / "artifacts" / "generation_f32")
+    serving.export_generation(task, out_dir, energy=True)
+    rng = np.random.default_rng(SEED + 62)
+    mfcc, video = rng.random((2, 12), dtype=np.float32), rng.random((2, 224, 298, 3), dtype=np.float32)
+    eps = rng.standard_normal((2, 150)).astype(np.float32)
+    outs = [serving.load_artifact(out_dir, device=dev).generate(mfcc, video, eps=eps) for dev in ("cuda", "cpu")]
+    err = float(np.abs(outs[0][0] - outs[1][0]).max())
+    rel_e = float((np.abs(outs[0][1] - outs[1][1]) / np.abs(outs[1][1])).max())
+    log(f"check generation artifact f32 cuda vs cpu (2 frames): max_abs_err={err:.3e} (tol {PATH_TOL}), energy "
+        f"max_rel_err={rel_e:.3e}")
+    if not err <= PATH_TOL:
+        raise AssertionError(f"the artifact on CUDA and on the CPU differ by {err}")
+
+
+def box_sweep(counters: dict, root: Path, total: dict) -> None:
+    """``run_box_iou_sweep`` over box-annotated synthetic shards (two videos
+    of two seconds, batches of two windows) with a full-width f32 generator
+    (``ae``: no noise; its last kernel scaled so that the energy maps vary),
+    on the card (launches counted per batch) and on the CPU."""
+    from acoustic_image_generation_tpu_torch.data.pipeline import AcousticImageDataLoader
+    from acoustic_image_generation_tpu_torch.data.synthetic import write_flickr_dataset
+    from acoustic_image_generation_tpu_torch.evaluation.localize_boxes import run_box_iou_sweep
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    lists = write_flickr_dataset(str(root / "flickr"), num_videos=2, seconds_per_video=2, seed=SEED)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        task = GenerationTask(GenerationConfig(ae=True, compute_dtype="float32"), device=dev).init_params(SEED)
+        with torch.no_grad():
+            task.generator.final.weight.mul_(30.0)
+        loader = AcousticImageDataLoader(lists["testing"], "testing", 2, include_boxes=True)
+        if dev == "cuda":
+            with counted(counters, "box sweep on the card (2 batches)") as c:
+                res[dev] = run_box_iou_sweep(task, loader, str(root / "boxes"), invert=True)
+            for k, v in c.launches.items():
+                total[k] += v
+            per_batch = {k: v // 2 for k, v in c.launches.items() if v}
+            if per_batch != {"mfcc": 1, "conv_chain": 12}:
+                raise AssertionError(f"box sweep launches a batch {per_batch}")
+        else:
+            res[dev] = run_box_iou_sweep(task, loader, invert=True)
+        del task
+    got, want = res["cuda"], res["cpu"]
+    n = len(want["iou"])
+    gap = float(np.abs(got["iou"] - want["iou"]).max())
+    frac_gap = max(abs(got["fractions"][t] - want["fractions"][t]) for t in want["fractions"])
+    log(f"check box sweep cuda vs cpu ({n} frames): IoU max gap {gap:.3e} (tol {BOX_IOU_TOL}), IoU range "
+        f"[{got['iou'].min():.4f}, {got['iou'].max():.4f}], fractions gap {frac_gap:.4f}, AUC {got['auc']:.6f} vs "
+        f"{want['auc']:.6f} (tol 1/{n}); files {len(list((root / 'boxes').iterdir()))}")
+    if (n != 48 or gap > BOX_IOU_TOL or frac_gap > 1 / n or abs(got["auc"] - want["auc"]) > 1 / n
+            or not np.isfinite(got["iou"]).all()):
+        raise AssertionError("the box sweep on the card and on the CPU differ")
+
+
+def check_render_step() -> None:
+    """The show-video device step (preprocess, forward, ``find_logen``,
+    bilinear resize to 224x298) on the card against the CPU: full-width
+    f32 generator, two frames, the same noise."""
+    from acoustic_image_generation_tpu_torch.evaluation.show_video import video_overlay_step
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    rng = np.random.default_rng(SEED + 63)
+    raw = train_batch(rng, 1, 2)
+    eps = rng.standard_normal((2, 150)).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        task = GenerationTask(GenerationConfig(compute_dtype="float32"), device=dev).init_params(SEED)
+        randomize_biases(task, SEED + 8)
+        video, emap = video_overlay_step(task, raw, eps=torch.from_numpy(eps))
+        outs.append((video.cpu(), emap.cpu()))
+        del task
+    v_err = float((outs[0][0] - outs[1][0]).abs().max())
+    e_err = float(((outs[0][1] - outs[1][1]).abs() / outs[1][1].abs()).max())
+    log(f"check show-video device step cuda vs cpu: frames {tuple(outs[0][0].shape)} max_abs_err={v_err:.3e} (tol "
+        f"{RENDER_TOL['video']}), resized energy {tuple(outs[0][1].shape)} max_rel_err={e_err:.3e} (tol "
+        f"{RENDER_TOL['energy']})")
+    if outs[0][1].shape != (2, 224, 298) or v_err > RENDER_TOL["video"] or not e_err <= RENDER_TOL["energy"]:
+        raise AssertionError("the render step on the card and on the CPU differ")
+
+
+def artifact_cli(counters: dict, lists: dict, root: Path, checkpoint: str, total: dict) -> None:
+    """``tools export-serving --energy`` of a generation checkpoint,
+    ``serve-info``, and ``generate --energy --artifact`` against ``generate
+    --energy`` from the checkpoint on the testing split: equal files."""
+    from acoustic_image_generation_tpu_torch.cli import tools
+
+    flags = workflow_flags(lists, root, "train_bn")
+    art = root / "cli_artifact"
+    runs = [("tools export-serving", ["export-serving", "--energy", checkpoint, str(art), "--", *flags], ()),
+            ("tools serve-info", ["serve-info", str(art)], ()),
+            ("tools generate --artifact", ["generate", "--energy", "--artifact", str(art), checkpoint,
+                                           str(root / "gen_artifact"), "--", *flags], ("mfcc", "conv_chain")),
+            ("tools generate", ["generate", "--energy", checkpoint, str(root / "gen_checkpoint"), "--", *flags],
+             ("mfcc", "conv_chain"))]
+    for what, argv, need in runs:
+        with counted(counters, f"serving {what}", need=need) as c:
+            rc = tools.main(argv)
+        for k, v in c.launches.items():
+            total[k] += v
+        if rc != 0:
+            raise AssertionError(f"{what} exited {rc}")
+    for name in ("testing_generated.npy", "testing_energy.npy", "testing_labels.npy"):
+        a, b = np.load(root / "gen_artifact" / name), np.load(root / "gen_checkpoint" / name)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"generate --artifact and generate from the checkpoint differ in {name}")
+    log(f"serving CLI: generate --artifact equals generate from the checkpoint ({a.shape[0]} images, energy "
+        f"maps, labels)")
+
+
+def adam_on_card() -> dict:
+    """optax's Adam (``train/optim.py::Adam``) over the trainable tensors of
+    the full-width generation task: three steps on the card and on the CPU
+    from the same f32 parameters and gradients (seven decades of
+    magnitude), the parameters and both moments equal to the bit; then one
+    optimizer step's device time (CUDA events, the stream held behind a
+    spin so that the host's launches run ahead of it, as in a train step)
+    and host time (until ``step`` returns), medians of ADAM_STEPS, for it
+    and for ``TF1Adam``. Returns ``{name: {"device": ms, "host": ms}}``."""
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+    from acoustic_image_generation_tpu_torch.train.optim import Adam, TF1Adam
+
+    task = GenerationTask(GenerationConfig(), device="cuda").init_params(SEED)
+    cuda = [p.detach().clone().requires_grad_() for p in task.parameters() if p.requires_grad]
+    del task
+    host = [p.detach().cpu().requires_grad_() for p in cuda]
+    rng = np.random.default_rng(SEED + 62)
+    grads = [[torch.from_numpy(np.asarray(rng.standard_normal(p.shape) * 10.0 ** rng.uniform(-6, 1, p.shape),
+                                          np.float32)) for p in host] for _ in range(3)]
+    opts = Adam(cuda, 1e-4), Adam(host, 1e-4)
+    for step in grads:
+        for p, q, g in zip(cuda, host, step):
+            p.grad, q.grad = g.cuda(), g.clone()
+        for opt in opts:
+            opt.step()
+    for p, q in zip(cuda, host):
+        a, b = opts[0].state[p], opts[1].state[q]
+        for name, x, y in (("parameter", p, q), ("m", a["m"], b["m"]), ("v", a["v"], b["v"])):
+            if not torch.equal(x.detach().cpu(), y.detach()):
+                raise AssertionError(f"optax Adam on the card: a tensor's {name} differs from the CPU's after 3 steps")
+    n = sum(p.numel() for p in cuda)
+    times = {}
+    for name, rule in (("adam", Adam), ("tf1_adam", TF1Adam)):
+        opt = rule(cuda, 1e-4)
+        for p, g in zip(cuda, grads[0]):
+            p.grad = g.cuda()
+        device, host = [], []
+        for _ in range(ADAM_STEPS + 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(100_000_000)  # about 50 ms of spinning: the step's launches queue behind it
+            start.record()
+            t0 = time.perf_counter()
+            opt.step()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            device.append(start.elapsed_time(end))
+        times[name] = dict(device=statistics.median(device[2:]), host=statistics.median(host[2:]))
+    log(f"optax Adam on the card ({card()}): 3 steps over {len(cuda)} tensors ({n} f32 entries) equal to the CPU's "
+        f"to the bit (parameters, m, v); one step, median of {ADAM_STEPS}, device / host ms: optax Adam "
+        f"{times['adam']['device']:.3f} / {times['adam']['host']:.3f}, TF1 Adam {times['tf1_adam']['device']:.3f} / "
+        f"{times['tf1_adam']['host']:.3f}")
+    if max(t["host"] for t in times.values()) > 50:
+        raise AssertionError("an optimizer step's launches outlasted the spin: its device time is the host's")
+    return times
+
+
+def optax_adam(counters: dict, lists: dict, root: Path, total: dict) -> None:
+    """Two CLI epochs with ``optim.tf1_adam=False`` in the experiment
+    configuration (the frozen trunk, 64-clip batches), the validation MSE
+    falling; then the last epoch's checkpoint restored, the optimizer
+    optax's with every slot at the run's step, and one more epoch that
+    continues from it."""
+    import dataclasses
+
+    from acoustic_image_generation_tpu_torch.cli.main import build_parser, config_from_args, make_loader, select_task
+    from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+    from acoustic_image_generation_tpu_torch.train.optim import Adam
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    def trainer_of(epochs):
+        args = build_parser().parse_args(workflow_flags(lists, root, "optax_adam", "--trunk_bn", "frozen",
+                                                        "--num_epochs", str(epochs)))
+        config = config_from_args(args)
+        config = dataclasses.replace(config, optim=dataclasses.replace(config.optim, tf1_adam=False))
+        return Trainer(select_task(config, args.device), config), config
+
+    trainer, config = trainer_of(2)
+    with counted(counters, "serving optax Adam: two CLI epochs", need=("mfcc", "conv_chain")) as c:
+        state = trainer.fit(make_loader(config, "training"), make_loader(config, "validation"))
+    for k, v in c.launches.items():
+        total[k] += v
+    read_run(root / "runs" / "optax_adam", "optax Adam")
+    if not isinstance(state.optimizer, Adam) or c.launches["conv_chain_backward"] == 0:
+        raise AssertionError("the optax run did not train with optax's Adam")
+    steps = state.step
+    del trainer, state
+    trainer, config = trainer_of(1)
+    state = trainer.restore(str(root / "runs" / "optax_adam" / "epoch_1.ckpt"), trainer.init_state())
+    if not isinstance(state.optimizer, Adam) or state.step != steps or ckpt.slot_count(state) != steps:
+        raise AssertionError(f"the optax checkpoint restored at step {state.step}, expected {steps}")
+    with counted(counters, "serving optax Adam: a resumed epoch") as c:
+        state = trainer.fit(make_loader(config, "training"), make_loader(config, "validation"), state=state)
+    for k, v in c.launches.items():
+        total[k] += v
+    log(f"optax Adam: two epochs to step {steps}, resumed to step {state.step}")
+    if state.step != steps + steps // 2 or ckpt.slot_count(state) != state.step:
+        raise AssertionError(f"the resumed optax run stopped at step {state.step}")
+
+
+def serving_phase(counters: dict, lists: dict, root: Path, checkpoint: str) -> dict:
+    """Phase 15: the six artifact kinds exported, loaded and served at full
+    width, bf16, each with its times, bytes, launches, peak and the bit-equal
+    check against the in-process service; HTTP round trips and error codes
+    on the generation artifact; the f32 artifact CUDA against the CPU; the
+    artifact CLI on ``checkpoint``; the box sweep and the render step CUDA
+    against the CPU; optax's Adam on the card against the CPU, its step
+    timed beside TF1's; optax's Adam from the command line. Returns the launch
+    counts summed over the phase's passes."""
+    total = dict.fromkeys(counters, 0)
+    records = {}
+    for kind in SERVING_KINDS:
+        rec, model, served = serve_artifact(kind, counters, root, total)
+        if kind == "generation":
+            rec["http"] = http_round_trip(model, served, rec)
+        records[kind] = rec
+        del model, served
+        torch.cuda.empty_cache()
+    check_artifact_against_cpu(root)
+    artifact_cli(counters, lists, root, checkpoint, total)
+    box_sweep(counters, root, total)
+    check_render_step()
+    torch.cuda.empty_cache()
+    records["optimizer step"] = adam_on_card()
+    optax_adam(counters, lists, root, total)
+    log(f"serving phase ({card()}): " + json.dumps(records))
+    return total
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -3549,9 +4062,10 @@ def kernels_only(group: str, package_root) -> int:
 def phase_only(which: str) -> int:
     """``--cached`` (phase 10), ``--workflow`` (phase 11), ``--classify``
     (phase 12, after the ``sosfilt`` check), ``--embed-workflow`` (phase
-    13) or ``--task-families`` (phase 14, with the ``conv_chain`` checks at
-    UNetEnergy's chains): build the kernels of that path and run the phase
-    alone on its own shards. Prints no result line."""
+    13), ``--task-families`` (phase 14, with the ``conv_chain`` checks at
+    UNetEnergy's chains) or ``--serving`` (phase 15, its CLI part on a
+    checkpoint of random weights): build the kernels of that path and run
+    the phase alone on its own shards. Prints no result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
@@ -3564,7 +4078,8 @@ def phase_only(which: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
     names = {"classify": ("mfcc", "conv_chain", "sosfilt"), "embed_workflow": ("mfcc", "conv_chain", "stft"),
-             "task_families": ("conv_chain", "stft")}.get(which, ("mfcc", "conv_chain", "qgemm_s8"))
+             "task_families": ("conv_chain", "stft"),
+             "serving": ("mfcc", "conv_chain", "stft")}.get(which, ("mfcc", "conv_chain", "qgemm_s8"))
     for name, (secs, text) in build.build(names).items():
         log(f"build {name}: {secs:.2f} s")
         for fn, regs in re.findall(r"entry function '(\w+)'.*?(Used \d+ registers[^\n]*)", text, re.S):
@@ -3584,6 +4099,13 @@ def phase_only(which: str) -> int:
             embed_workflow(counters, lists, root)
         elif which == "task_families":
             task_families(counters, cc, lists, root, check_chains=True)
+        elif which == "serving":
+            from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+
+            trainer, _, _ = workflow_trainer(lists, root, "train_bn")  # a checkpoint of random weights
+            path = ckpt.save_checkpoint(trainer.run_dir, 0, trainer.init_state())
+            del trainer
+            serving_phase(counters, lists, root, path)
         else:
             classification(counters, lists, root)
         log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
@@ -3609,6 +4131,9 @@ def main() -> int:
                       help="only run phase 13, TF1 checkpoints and the embedding workflow from the command line")
     only.add_argument("--task-families", action="store_const", const="task_families", dest="only",
                       help="only run phase 14, the reconstruction, projection and joint task families")
+    only.add_argument("--serving", action="store_const", const="serving", dest="only",
+                      help="only run phase 15: serving artifacts, HTTP, the artifact CLI, the box sweep, the "
+                           "render step and optax's Adam")
     parser.add_argument("--package-root", default=None,
                         help="with --trunk-gemms or --frontends: import the port from this checkout "
                              "(e.g. a parent commit's)")
@@ -3617,7 +4142,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families"):
+    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -3633,6 +4158,7 @@ def main() -> int:
     from acoustic_image_generation_tpu_torch.ops import sosfilt as sf
     from acoustic_image_generation_tpu_torch.ops import stft as st
     from acoustic_image_generation_tpu_torch.serving import EmbeddingService, GenerationService
+    from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
     from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -3757,18 +4283,25 @@ def main() -> int:
         families = task_families(every, cc, lists, root, check_chains=False)
         torch.cuda.empty_cache()
         log(f"phase task families: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        run_dir = root / "runs" / "train_bn"
+        best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
+        served = serving_phase(every, lists, root, str(best))
+        torch.cuda.empty_cache()
+        log(f"phase serving: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
         k["embed_workflow_launches"] = embed_flow[k["name"]]
         k["task_families_launches"] = families[k["name"]]
+        k["serving_launches"] = served[k["name"]]
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's and 14's passes
+    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's and 15's passes
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
-             "workflow_launches", "embed_workflow_launches", "task_families_launches")
+             "workflow_launches", "embed_workflow_launches", "task_families_launches", "serving_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 and defaults, the configuration it builds, the task dispatch, the device
 policy, the reference protocol through the real entry point (``main
 --mode train``, the best epoch from ``model.txt``, ``main --mode test
---restore_checkpoint``) and the ``iou``, ``auc`` and ``generate`` tools,
+--restore_checkpoint``) and the ``iou``, ``auc`` and ``generate`` tools
+(``generate --artifact`` on the ``export-serving`` artifact of the run),
 at a small size (ResNet 1/1/1/1, f32) on the CPU."""
 
 import argparse
@@ -170,5 +171,14 @@ def test_iou_auc_and_generate_tools(run):
     assert images.shape == (24, 36, 48, 12) and energy.shape == (24, 36, 48) and labels.shape == (24,)
     assert np.isfinite(images).all() and np.isfinite(energy).all()
     np.testing.assert_array_equal(energy, find_logen(torch.from_numpy(images)).numpy())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tools.main(["generate", "--artifact", "a", run["ckpt"], str(gen), "--"] + run["flags"])
+    # the same checkpoint through a serving artifact: the same images, energy maps and labels
+    art, gen_art = run["tmp"] / "artifact", run["tmp"] / "gen_artifact"
+    # --external_weights is the JAX command line's and changes nothing; only the port's platforms are taken
+    assert tools.main(["export-serving", "--energy", "--external_weights", run["ckpt"], str(art), "--"]
+                      + run["flags"]) == 0
+    assert tools.main(["export-serving", "--platforms", "tpu,cpu", run["ckpt"], str(run["tmp"] / "tpu"), "--"]
+                      + run["flags"]) == 2
+    assert tools.main(["generate", "--energy", "--artifact", str(art), run["ckpt"], str(gen_art), "--"]
+                      + run["flags"]) == 0
+    for name in ("testing_generated.npy", "testing_energy.npy", "testing_labels.npy"):
+        np.testing.assert_array_equal(np.load(gen_art / name), np.load(gen / name), err_msg=name)

@@ -80,5 +80,6 @@ def test_more_than_one_device_raises(parallel):
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         pconfig.generation_config(cfg)
     pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(num_devices=1)))
-    with pytest.raises(NotImplementedError, match="TF1 Adam"):
-        pconfig.generation_config(pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False)))
+    # optax's Adam is the trainer's choice (tests/test_torch_optim.py): the task's configuration is the same
+    optax = pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False))
+    assert pconfig.generation_config(optax) == pconfig.generation_config(pconfig.ExperimentConfig())
