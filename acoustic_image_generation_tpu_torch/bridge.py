@@ -45,6 +45,7 @@ from acoustic_image_generation_tpu_torch.models.dualcamnet import TemporalConv
 from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, Conv2d, ConvTransposeTF, Dense
 from acoustic_image_generation_tpu_torch.models.quant import QLayer, QuantTrunk
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 
 def _hwio_to_oihw(a):
@@ -90,6 +91,30 @@ _INVERSE = {
     _hwio_to_packed: _packed_to_hwio,
     _same: _same,
 }
+
+
+# each layout's flax axes as port dims: flax axis k is port dim _AXES[fn][k]
+# (None: spread over a port dim, as a packed kernel's Ci)
+_AXES = {
+    _hwio_to_oihw: (2, 3, 1, 0),
+    _dhwio_to_oihw: (2, 3, None, 1, 0),
+    _hwio_to_iohw: (2, 3, 0, 1),
+    np.transpose: (1, 0),
+    _hwio_to_packed: (None, None, None, 1),
+}
+
+
+def flax_layout(fn, shape: tuple) -> tuple[tuple, tuple]:
+    """``(flax shape, port dim of each flax axis)`` of a port tensor of
+    ``shape`` in layout ``fn`` (a transform of ``targets``)."""
+    if fn is _same:
+        return tuple(shape), tuple(range(len(shape)))
+    if fn is _hwio_to_packed:
+        return (3, 3, shape[0] // 9, shape[1]), _AXES[fn]
+    if fn is _dhwio_to_oihw:
+        return (shape[2], shape[3], 1, shape[1], shape[0]), _AXES[fn]
+    axes = _AXES[fn]
+    return tuple(shape[d] for d in axes), axes
 
 
 def targets(task: torch.nn.Module):
@@ -160,8 +185,7 @@ def load_flax(task: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> N
             raise ValueError(
                 f"{coll} {'/'.join(path)}: {value.shape} does not fit port tensor {tuple(tensor.shape)}"
             )
-        with torch.no_grad():
-            tensor.copy_(_strided(value))
+        mesh.copy_full_(tensor, _strided(value))  # an FSDP shard keeps its rows
         used.add((coll, path))
         covered.add(id(tensor))
     left = sorted("/".join((c, *p)) for c, t in trees.items() for p in t if (c, p) not in used)
@@ -237,6 +261,6 @@ def to_flax(task: torch.nn.Module) -> tuple[dict, dict]:
         node = trees[coll]
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        value = tensor.detach().to("cpu", torch.float32).numpy()
+        value = mesh.full(tensor).detach().to("cpu", torch.float32).numpy()
         node[path[-1]] = _strided(_INVERSE[fn](value)).clone(memory_format=torch.contiguous_format).numpy()
     return trees["params"], trees["batch_stats"]

@@ -32,12 +32,28 @@ of ``--encoder_type`` (``Ac``, ``Energy``, ``Audio``, ``Video``).
 One flag sets a ``DataConfig`` field that JAX's parser leaves at its
 default: ``--normalize_spectrogram 1`` (the embedding task's z-normalized
 spectrograms, with the statistics of ``stats2s`` beside ``--train_file``).
+
+Devices, as JAX's ``--num_devices`` (its one process over N devices): the
+generation task trains and tests on N ranks, one process a device
+(``parallel/mesh.py``), each rank on its rows of every ``--batch_size``
+batch. ``--num_devices N > 1`` starts the N ranks itself (``cuda:0`` to
+``cuda:N-1`` over NCCL, or N CPU ranks over gloo with ``--device cpu``; more
+than the visible GPUs raise); unset, it takes every visible GPU for the
+generation task and one device for the other tasks, which raise when asked
+for more (``ROADMAP.md`` Queue 1, item 8.1, second half). Under ``torchrun``
+each process is the rank its environment names. Each rank's loader
+decodes only its rows: a rank is one process, so the host sharding that
+JAX's ``--host_shard 1`` asks of a multi-host run is the port's one layout,
+and the flag is accepted for JAX's recipes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+
+import torch
 
 from acoustic_image_generation_tpu_torch.core.config import (
     DataConfig,
@@ -53,6 +69,7 @@ from acoustic_image_generation_tpu_torch.core.config import (
     project_config,
     reconstruct_config,
 )
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 
 def _resnet_units(s: str) -> tuple[int, ...]:
@@ -139,7 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_qgemm", type=int, default=0,
                    help="with --trunk_quant int8: every 1x1 trunk conv on the qgemm_s8 CUDA kernel "
                         "(conv+dequant+residual+ReLU+requant in one kernel)")
-    p.add_argument("--host_shard", type=int, default=0)
+    p.add_argument("--host_shard", type=int, default=0,
+                   help="accepted for the JAX package's recipes; on more than one rank each rank's loader "
+                        "always decodes only its rows")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run: cuda (raises without a GPU) or cpu (the kernels' plain versions)")
     return p
@@ -215,45 +234,49 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
+def is_generation(config: ExperimentConfig) -> bool:
+    """Whether the experiment runs ``GenerationTask``, the one task that
+    trains on more than one device."""
+    m = config.model
+    return bool(m.embedding and m.mfcc and not m.project and not m.jointmvae)
+
+
+def task_config(config: ExperimentConfig):
+    """``(the task's module and class name, its configuration)``; the
+    configuration functions raise for what the port does not run."""
+    m = config.model
+    train = "acoustic_image_generation_tpu_torch.train."
+    if m.embedding and m.project:
+        return (train + "project", "ProjectTask"), project_config(config)
+    if m.embedding and m.jointmvae:
+        return (train + "joint", "JointTask"), joint_config(config)
+    if m.embedding and m.mfcc:
+        return (train + "generation", "GenerationTask"), generation_config(config)
+    if m.embedding:
+        return (train + "embed", "EmbedTask"), embed_config(config)
+    if m.model == "UNet":
+        return (train + "reconstruct", "ReconstructTask"), reconstruct_config(config)
+    if config.data.correspondence:
+        return (train + "classify", "CorrespondenceTask"), classify_config(config)
+    if m.mfcc:
+        return (train + "classify", "ClassificationTask"), classify_config(config)
+    return (train + "classify", "GeneratedClassificationTask"), classify_config(config, generated=True)
+
+
 def select_task(config: ExperimentConfig, device: str = "cuda"):
     """The task of the experiment on ``device``, its weights random from
     ``run.seed`` (JAX's trainer initializes from that seed too, with its own
     generator)."""
-    m = config.model
-    seed = config.run.seed
-    if m.embedding and m.project:
-        from acoustic_image_generation_tpu_torch.train.project import ProjectTask
+    import importlib
 
-        return ProjectTask(project_config(config), device=device).init_params(seed)
-    if m.embedding and m.jointmvae:
-        from acoustic_image_generation_tpu_torch.train.joint import JointTask
-
-        return JointTask(joint_config(config), device=device).init_params(seed)
-    if m.embedding and m.mfcc:
-        from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
-
-        return GenerationTask(generation_config(config), device=device).init_params(seed)
-    if m.embedding:
-        from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
-
-        return EmbedTask(embed_config(config), device=device).init_params(seed)
-    if m.model == "UNet":
-        from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructTask
-
-        return ReconstructTask(reconstruct_config(config), device=device).init_params(seed)
-    from acoustic_image_generation_tpu_torch.train import classify
-
-    if config.data.correspondence:
-        task = classify.CorrespondenceTask(classify_config(config), device=device)
-    elif m.mfcc:
-        task = classify.ClassificationTask(classify_config(config), device=device)
-    else:
-        task = classify.GeneratedClassificationTask(classify_config(config, generated=True), device=device)
-    return task.init_params(seed)
+    (module, name), cfg = task_config(config)
+    return getattr(importlib.import_module(module), name)(cfg, device=device).init_params(config.run.seed)
 
 
 def make_loader(config: ExperimentConfig, split: str):
-    """The split's ``AcousticImageDataLoader``, or None without its list."""
+    """The split's ``AcousticImageDataLoader``, or None without its list.
+    On more than one rank it decodes this rank's rows of every batch
+    (``shard_index``/``shard_count``)."""
     from acoustic_image_generation_tpu_torch.data.pipeline import AcousticImageDataLoader
 
     path = {"training": config.data.train_file, "validation": config.data.valid_file,
@@ -261,13 +284,51 @@ def make_loader(config: ExperimentConfig, split: str):
     if path is None:
         return None
     return AcousticImageDataLoader(path, split, config.data.batch_size, sample_length=config.data.sample_length,
-                                   datakind=config.data.datatype, seed=config.run.seed)
+                                   datakind=config.data.datatype, seed=config.run.seed, shard_index=mesh.rank(),
+                                   shard_count=mesh.world())
+
+
+def num_devices(config: ExperimentConfig, device: str) -> int:
+    """``parallel.num_devices``, or unset: every visible GPU for the
+    generation task on ``cuda``, else one."""
+    if config.parallel.num_devices is not None:
+        return config.parallel.num_devices
+    if device == "cuda" and is_generation(config) and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
+
+
+def _rank_main(argv: list) -> int:
+    """One rank of ``main``'s N (``mesh.launch`` has set up its group)."""
+    args = build_parser().parse_args(argv)
+    return run(args, mesh.device())
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    env = mesh.from_env()
+    if env is not None:  # torchrun: this process is one rank of its group
+        rank, world, local_rank = env
+        dev = mesh.setup(rank, world, device=args.device, local_rank=local_rank, init_method="env://")
+        try:
+            return run(args, dev)
+        finally:
+            mesh.teardown()
     config = config_from_args(args)
-    task = select_task(config, args.device)
+    n = num_devices(config, args.device)
+    if n > 1:
+        task_config(dataclasses.replace(config, parallel=dataclasses.replace(config.parallel, num_devices=n)))
+        mesh.launch(_rank_main, n, list(sys.argv[1:] if argv is None else argv), device=args.device)
+        return 0
+    return run(args, args.device)
+
+
+def run(args, device) -> int:
+    """``main``'s work on ``device``, in one process or as one rank."""
+    config = config_from_args(args)
+    if mesh.world() > 1:
+        config = dataclasses.replace(config, parallel=dataclasses.replace(config.parallel, num_devices=mesh.world()))
+    task = select_task(config, device)
 
     from acoustic_image_generation_tpu_torch.train.trainer import Trainer
     from acoustic_image_generation_tpu_torch.train.warmstart import apply_init_checkpoints
@@ -296,7 +357,9 @@ def main(argv=None) -> int:
         if not ckpt_path:
             raise SystemExit("test mode needs --init_checkpoint or --restore_checkpoint")
         state = trainer.restore(ckpt_path, trainer.init_state())
-        print(trainer.test(state, test_loader))
+        results = trainer.test(state, test_loader)
+        if mesh.is_main():
+            print(results)
     return 0
 
 

@@ -16,9 +16,11 @@ Fields the port reads as JAX does: the data fields the loader takes
 ``sample_length``), the model, optimizer and run fields. Fields it keeps
 only to carry them: the TPU-only ``pallas_mfcc`` and ``fused_conv`` (on the
 card the port always runs the MFCC frontend and the generator's conv pairs
-on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``
-asks for one device: more devices, FSDP or tensor parallelism raise in
-``generation_config`` (DDP/FSDP over NCCL is ``ROADMAP.md`` Queue 1, item 8).
+on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``'s
+``num_devices`` and ``fsdp`` train the generation task on that many ranks
+(``parallel/mesh.py``; ``cli/main.py`` starts them). ``tensor_parallel >
+1`` raises, and so do the other tasks at more than one device or with
+FSDP, each with its reason (``ROADMAP.md`` Queue 1, item 8.1, second half).
 """
 
 from __future__ import annotations
@@ -29,12 +31,12 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
-from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig
-from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
-from acoustic_image_generation_tpu_torch.train.joint import JointConfig
-from acoustic_image_generation_tpu_torch.train.project import ProjectConfig
-from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig
+from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
+from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
+from acoustic_image_generation_tpu_torch.train.generation import CORRESPONDENCE_ONE_DEVICE, GenerationConfig
+from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTask
+from acoustic_image_generation_tpu_torch.train.project import ProjectConfig, ProjectTask
+from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig, ReconstructTask
 
 
 @dataclass(frozen=True)
@@ -64,7 +66,7 @@ class DataConfig:
     prefetch_batches: int = 2
     pallas_mfcc: bool = False  # the JAX package's TPU kernel switch; the port's card path always runs mfcc.cu
     stats_dir: str | None = None
-    host_shard: bool = False  # one process here: a no-op
+    host_shard: bool = False  # JAX's multi-host switch; the port's ranks always decode their own rows only
 
     @property
     def nr_frames(self) -> int:
@@ -152,7 +154,7 @@ class RunConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     data_axis: str = "data"
-    num_devices: int | None = None  # None: the one device the port runs on
+    num_devices: int | None = None  # None: every visible device for the generation task, else one
     compute_dtype: str = "float32"  # or "bfloat16"
     fsdp: bool = False
     tensor_parallel: int = 1
@@ -200,17 +202,28 @@ def _build(cls, values: dict):
     return cls(**{k: tuple(v) if k in tuples and isinstance(v, list) else v for k, v in values.items()})
 
 
+SECOND_HALF = "ROADMAP.md Queue 1, item 8.1, second half"
+
+
+def refuse_tensor_parallel(config: ExperimentConfig) -> None:
+    if config.parallel.tensor_parallel > 1:
+        raise NotImplementedError(f"tensor_parallel > 1 is not ported: the port splits the generation task's batch "
+                                  f"(num_devices) and shards its weights (fsdp) only ({SECOND_HALF})")
+
+
+def parallel(config: ExperimentConfig) -> bool:
+    """Whether the experiment asks for more than one device or for FSDP."""
+    return (config.parallel.num_devices or 1) > 1 or config.parallel.fsdp
+
+
 def generation_config(config: ExperimentConfig) -> GenerationConfig:
     """The port's ``GenerationConfig`` of an experiment. Raises for what
-    the port does not run: more than one device, FSDP or tensor
-    parallelism. ``optim.tf1_adam`` is the trainer's (``Trainer.
-    init_state``)."""
-    par = config.parallel
-    if (par.num_devices or 1) > 1 or par.fsdp or par.tensor_parallel > 1:
-        raise NotImplementedError(
-            "the port trains on one device: num_devices > 1, fsdp and tensor_parallel > 1 wait for "
-            "DDP/FSDP over NCCL (ROADMAP.md Queue 1, item 8)"
-        )
+    the port does not run: tensor parallelism, and the correspondence
+    augmentation on more than one device. ``optim.tf1_adam`` and
+    ``parallel`` are the trainer's (``Trainer``)."""
+    refuse_tensor_parallel(config)
+    if parallel(config) and config.data.correspondence:
+        raise NotImplementedError(f"{CORRESPONDENCE_ONE_DEVICE} ({SECOND_HALF})")
     m, o = config.model, config.optim
     return GenerationConfig(
         num_skip_conn=m.num_skip_conn,
@@ -242,8 +255,9 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
 def classify_config(config: ExperimentConfig, *, generated: bool = False) -> ClassifyConfig:
     """The port's ``ClassifyConfig`` of an experiment (classes and channels
     by ``data.datatype``); ``generated`` adds the frozen generator's
-    ``GenerationConfig``. Raises as ``generation_config`` does."""
-    gen = generation_config(config)  # the one-device check
+    ``GenerationConfig``. Raises at more than one device (``one_device``)."""
+    one_device(config, ClassificationTask)
+    gen = generation_config(config)
     d = config.data
     return ClassifyConfig(
         num_classes=d.num_classes,
@@ -265,8 +279,8 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     ``data.datatype`` (13 for music), ``model.num_class`` latents, the
     variant flags, and the spectrogram statistics' directory (``data.
     stats_dir``, else ``stats2s`` beside the training list, as JAX's
-    ``_load_spec_stats``). Raises as ``generation_config`` does."""
-    generation_config(config)  # the one-device check
+    ``_load_spec_stats``). Raises at more than one device (``one_device``)."""
+    one_device(config, EmbedTask)
     d, m, o = config.data, config.model, config.optim
     stats_dir = d.stats_dir
     if stats_dir is None and d.train_file:
@@ -288,33 +302,42 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     )
 
 
-def _common(config: ExperimentConfig) -> dict:
-    """The fields every task configuration takes, after the one-device
-    check of ``generation_config``."""
+def one_device(config: ExperimentConfig, task_class) -> None:
+    """Raise, with the task's ``one_device_reason``, when a task that trains
+    on one device only is asked for more or for FSDP; and for what
+    ``generation_config`` refuses."""
+    if parallel(config):
+        raise NotImplementedError(f"{task_class.one_device_reason} ({SECOND_HALF})")
     generation_config(config)
+
+
+def _common(config: ExperimentConfig, task_class) -> dict:
+    """The fields every task configuration takes, after ``one_device``."""
+    one_device(config, task_class)
     return dict(num_channels=config.data.num_channels, compute_dtype=config.parallel.compute_dtype,
                 learning_rate=config.optim.learning_rate, seed=config.run.seed)
 
 
 def reconstruct_config(config: ExperimentConfig) -> ReconstructConfig:
     """The port's ``ReconstructConfig`` of an experiment (``model.
-    encoder_type``; 13 acoustic channels for music). Raises as
-    ``generation_config`` does."""
-    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config))
+    encoder_type``; 13 acoustic channels for music). Raises at more than
+    one device (``one_device``)."""
+    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config, ReconstructTask))
 
 
 def project_config(config: ExperimentConfig) -> ProjectConfig:
     """The port's ``ProjectConfig`` of an experiment (``model.encoder_type``,
-    ``fusion``, ``l2``, ``optim.margin``). Raises as ``generation_config``
-    does."""
+    ``fusion``, ``l2``, ``optim.margin``). Raises at more than one device
+    (``one_device``)."""
     m = config.model
     return ProjectConfig(encoder_type=m.encoder_type, fusion=m.fusion, l2=m.l2, margin=config.optim.margin,
-                         **_common(config))
+                         **_common(config, ProjectTask))
 
 
 def joint_config(config: ExperimentConfig) -> JointConfig:
     """The port's ``JointConfig`` of an experiment (``model.fusion``,
-    ``onlyaudiovideo``, ``moddrop``). Raises as ``generation_config``
-    does."""
+    ``onlyaudiovideo``, ``moddrop``). Raises at more than one device
+    (``one_device``)."""
     m = config.model
-    return JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop, **_common(config))
+    return JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop,
+                       **_common(config, JointTask))

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_xla, conv_transpose_tf
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 
 def glorot_uniform(shape, fan_in: int, fan_out: int, generator: torch.Generator) -> torch.Tensor:
@@ -120,7 +121,12 @@ class BatchNorm(nn.Module):
     over (N, H, W) with the fast variance ``max(E[x^2] - E[x]^2, 0)``, the
     biased batch variance in the running average, updated in place, and the
     output in ``x``'s dtype. ``F.batch_norm(training=True)`` would put the
-    unbiased variance in the running average, so it is not used."""
+    unbiased variance in the running average, so it is not used.
+
+    With more than one rank (``parallel/mesh.py``) the statistics cover the
+    global batch, as JAX's over its ``data`` mesh: ``mesh.global_moments``
+    of the per-channel sums, sums of squares and counts, so the running
+    averages come out equal on every rank."""
 
     def __init__(self, channels, eps: float, momentum: float, *, device=None):
         super().__init__()
@@ -154,8 +160,12 @@ class BatchNorm(nn.Module):
             )
             return y.permute(0, 2, 3, 1)
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
+        if mesh.world() > 1:
+            mean, var = mesh.global_moments(xf.sum(dim=(0, 1, 2)), xf.square().sum(dim=(0, 1, 2)),
+                                            xf.numel() // xf.shape[-1])
+        else:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
         self.update(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)

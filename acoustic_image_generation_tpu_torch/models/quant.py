@@ -37,6 +37,7 @@ from acoustic_image_generation_tpu_torch.models.resnet import RESNET50_BLOCKS, C
 from acoustic_image_generation_tpu_torch.ops.qconv import conv2d_s8, max_pool_s8
 from acoustic_image_generation_tpu_torch.ops.qgemm import fdiv, fused_q1x1
 from acoustic_image_generation_tpu_torch.ops.tf_compat import fixed_pads, same_pads
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 # ------------------------------------------------------------------- fold
 
@@ -154,7 +155,9 @@ def _quant_act(x, amax, site, collect, observed):
     recorded in ``observed``."""
     xf = x.float()
     if collect:
-        amax = xf.abs().amax()
+        # the global batch's amax: each site's dynamic scale, and so every
+        # later site's input, is the one-device run's over all the rows
+        amax = mesh.all_reduce_(xf.abs().amax(), "max")
         observed[site] = amax
     amax = torch.clamp_min(amax, 1e-12)
     q = torch.round(xf * fdiv(127.0, amax)).clamp_(-127, 127)
@@ -239,7 +242,10 @@ def trunk_forward(qt: QuantTrunk, x: torch.Tensor, *, collect: bool = False,
 def calibrate(qt: QuantTrunk, video: torch.Tensor) -> QuantTrunk:
     """One-pass static calibration: run the trunk with dynamic scales on a
     representative batch of normalized frames and store the observed
-    per-site amaxes in ``qt.act`` (in place). Returns ``qt``."""
+    per-site amaxes in ``qt.act`` (in place). Returns ``qt``. With more than
+    one rank, ``video`` is this rank's rows of the batch and each amax is
+    taken over every rank's (an all-reduce ``MAX`` a site), so every rank
+    holds the one-device calibration of the whole batch."""
     with torch.no_grad():
         _, observed = trunk_forward(qt, video, collect=True)
         qt.act.copy_(torch.stack([observed[s] for s in qt.sites]))

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from acoustic_image_generation_tpu_torch.ops import build, gemm_plan
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -144,11 +145,17 @@ matmul_stats.launches = 0
 
 def conv1x1_batch_stats(x: torch.Tensor, kernel: torch.Tensor):
     """(B, H, W, Cin) NHWC x (Cin, Cout) -> (y (B, H, W, Cout) in x.dtype,
-    batch mean (Cout,) f32, biased batch variance (Cout,) f32)."""
+    batch mean (Cout,) f32, biased batch variance (Cout,) f32). With more
+    than one rank the statistics are the global batch's
+    (``parallel.mesh.global_moments``)."""
     b, h, w_, cin = x.shape
     cout = kernel.shape[-1]
     m = b * h * w_
     y, s, ss = matmul_stats(x.reshape(m, cin), kernel.reshape(cin, cout))
-    mean = s / m
-    var = torch.clamp_min(ss / m - mean * mean, 0.0)
+    if mesh.world() > 1:
+        # the kernel's sums are this rank's rows: all-reduced over the global batch
+        mean, var = mesh.global_moments(s, ss, m)
+    else:
+        mean = s / m
+        var = torch.clamp_min(ss / m - mean * mean, 0.0)
     return y.reshape(b, h, w_, cout), mean, var

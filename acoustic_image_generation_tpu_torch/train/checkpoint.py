@@ -28,6 +28,12 @@ is that step, which the port's ``TrainState.step`` equals. A state whose
 per-tensor steps disagree with ``state.step`` was torn by a fault inside
 the optimizer's update (JAX's functional state cannot be): it is refused
 with ``TornStateError`` rather than written.
+
+On more than one rank (``parallel/mesh.py``) the file is the one-process
+file, byte for byte: FSDP's shards of the parameters and of their Adam
+slots are gathered whole first (every rank takes part), and only the rank
+that writes (``write=True``, rank 0) encodes and writes it. Every rank
+restores the whole file and keeps its shards.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.core import msgpack
+from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train.state import TrainState
 
 
@@ -66,25 +73,31 @@ def slot_count(state: TrainState) -> int:
     return state.step
 
 
+def sharded(state: TrainState) -> bool:
+    """Whether any trained tensor of ``state`` is an FSDP shard."""
+    return any(mesh.is_sharded(p) for p in _trainable(state))
+
+
 def _collect(state: TrainState, copy: bool) -> dict:
     """What a checkpoint holds, as tensors in the port's layouts: live, or
     (``copy``) cloned on their device so that later in-place updates leave
-    them alone."""
+    them alone. Sharded tensors and their slots are gathered whole."""
     take = (lambda t: t.detach().clone()) if copy else (lambda t: t.detach())
     count = slot_count(state)
     opt = state.optimizer
     trainable = {id(p) for p in _trainable(state)}
     leaves, slots = [], []
     for tensor, coll, path, fn in bridge.targets(state.task):
-        leaves.append((coll, path, fn, take(tensor)))
+        leaves.append((coll, path, fn, take(mesh.full(tensor))))
         if coll == "params":
             slot = opt.state.get(tensor) if id(tensor) in trainable else None
             if id(tensor) not in trainable:
                 slots.append((path, fn, None, None))
             elif slot:
-                slots.append((path, fn, take(slot["m"]), take(slot["v"])))
+                slots.append((path, fn, take(mesh.full(slot["m"], like=tensor)),
+                              take(mesh.full(slot["v"], like=tensor))))
             else:
-                zeros = torch.zeros_like(tensor)
+                zeros = torch.zeros(tuple(tensor.shape), dtype=tensor.dtype, device=tensor.device)
                 slots.append((path, fn, zeros, zeros))
     return {"step": state.step, "count": count, "leaves": leaves, "slots": slots,
             "labelled": hasattr(state.task, "param_labels")}
@@ -145,10 +158,16 @@ def _write(path: str, tree: dict) -> None:
     os.replace(tmp, path)  # a checkpoint file is never half-written
 
 
-def save_checkpoint(run_dir: str, name, state: TrainState) -> str:
-    os.makedirs(run_dir, exist_ok=True)
+def save_checkpoint(run_dir: str, name, state: TrainState, *, write: bool = True) -> str:
+    """Write ``epoch_{name}.ckpt``; with ``write=False`` only take part in
+    gathering FSDP's shards (the other ranks)."""
     path = os.path.join(run_dir, f"epoch_{name}.ckpt")
-    _write(path, state_dict(state))
+    if not write and not sharded(state):
+        return path
+    collected = _collect(state, copy=False)
+    if write:
+        os.makedirs(run_dir, exist_ok=True)
+        _write(path, _state_dict(collected))
     return path
 
 
@@ -166,7 +185,11 @@ class AsyncCheckpointer:
         self._pool = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="aig-ckpt")
         self._pending: cf.Future | None = None
 
-    def save(self, run_dir: str, name, state: TrainState) -> str:
+    def save(self, run_dir: str, name, state: TrainState, *, write: bool = True) -> str:
+        """Snapshot ``state`` and write it in the background; ``write=False``
+        only takes part in gathering FSDP's shards (the other ranks)."""
+        if not write:
+            return save_checkpoint(run_dir, name, state, write=False)
         snapshot = _collect(state, copy=True)
         self.wait()
         os.makedirs(run_dir, exist_ok=True)
@@ -239,7 +262,7 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
             arr = np.array(fn(np.asarray(value, np.float32)), order="C")
             if arr.shape != tuple(tensor.shape):
                 raise ValueError(f"{path}: slot {key} of {'/'.join(tpath)} is {arr.shape}, not {tuple(tensor.shape)}")
-            slot[key] = torch.from_numpy(arr).to(tensor.device, tensor.dtype)
+            slot[key] = mesh.local_rows_of(torch.from_numpy(arr), tensor).to(tensor.device, tensor.dtype)
         opt.state[tensor] = slot
     template.step = step
     return template
@@ -257,7 +280,8 @@ class BestTracker:
     """Best-validation-metric gate and ``model.txt`` writer; ``mode='min'``
     for losses, ``'max'`` for accuracies."""
 
-    def __init__(self, run_dir: str, exp_name: str, mode: str = "min"):
+    def __init__(self, run_dir: str, exp_name: str, mode: str = "min", *, write: bool = True):
+        self.write = write  # False: track the best epoch, leave model.txt to the rank that writes
         self.run_dir = run_dir
         self.exp_name = exp_name
         self.mode = mode
@@ -271,6 +295,8 @@ class BestTracker:
         if better:
             self.best_epoch = epoch
             self.best_loss = loss
+            if not self.write:
+                return True
             os.makedirs(self.run_dir, exist_ok=True)
             with open(os.path.join(self.run_dir, "model.txt"), "w") as f:
                 f.write(

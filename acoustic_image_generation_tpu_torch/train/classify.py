@@ -75,6 +75,10 @@ class ClassifyConfig:
 class ClassificationTask(nn.Module):
     eval_metric = "accuracy"
     eval_mode = "max"
+    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
+    one_device_reason = ("the classification family trains on one device only: DualCamNet's per-clip loss and "
+                         "accuracy, the generated classifier's VAE noise and the correspondence shuffle are not yet "
+                         "split over ranks")
     reads_video = False  # no input of DualCamNet's: the trainer's batches skip it
 
     def __init__(self, config: ClassifyConfig = ClassifyConfig(), *, device=None):

@@ -100,6 +100,10 @@ class EmbedTask(nn.Module):
     reads_mfcc = False  # no VAE reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
+    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
+    one_device_reason = ("the embedding family trains on one device only: the audio and video VAEs train BN layers "
+                         "with gradients, and the batch-hard triplet mining, NCA and the moddrop draws cover the "
+                         "global batch")
 
     def __init__(self, config: EmbedConfig = EmbedConfig(), *, device=None):
         super().__init__()

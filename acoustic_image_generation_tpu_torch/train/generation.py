@@ -103,6 +103,11 @@ class GenerationConfig:
     cache_features_dtype: str = "bf16"  # bf16: what the trunk produces | f8_e4m3
 
 
+# why a generation task with the correspondence augmentation trains on one device only
+CORRESPONDENCE_ONE_DEVICE = ("the correspondence augmentation trains on one device only: it doubles each rank's rows, "
+                             "so its halves are not the global batch's")
+
+
 class GenerationTask(nn.Module):
     reads_mfcc = True  # the generator's input: the trainer's batches compute it
     eval_metric = "mse"  # the eval loss that gates the best epoch
@@ -130,6 +135,13 @@ class GenerationTask(nn.Module):
         labels = self.param_labels()
         for name, p in self.named_parameters():
             p.requires_grad_(labels[name] == "train")
+
+    @property
+    def one_device_reason(self) -> str | None:
+        """Why the task trains on one device only, or None: it takes more
+        unless the correspondence augmentation is on. (The other tasks name
+        theirs as a class attribute.)"""
+        return CORRESPONDENCE_ONE_DEVICE if self.cfg.correspondence else None
 
     def param_labels(self) -> dict[str, str]:
         """"train" or "frozen" for every parameter, as JAX's ``param_labels``:
@@ -234,6 +246,11 @@ class GenerationTask(nn.Module):
         out = self._forward(batch.mfcc, batch.video, train=True, eps=eps, generator=generator,
                             trunk_feat=trunk_feat, qtrunk=qtrunk)
         return self.objective(out, batch)
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def eval_losses(self, batch: Batch, *, eps=None, generator=None, qtrunk=None, trunk_feat=None):
         """Per-frame eval losses, eval-mode forward: ``({"mse": (N,),

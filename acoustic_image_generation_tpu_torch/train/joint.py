@@ -79,6 +79,9 @@ class JointTask(nn.Module):
     reads_video = True
     eval_metric = "mse"
     eval_mode = "min"
+    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
+    one_device_reason = ("the joint task trains on one device only: the shared moddrop draw and the stage-2 noise "
+                         "cover the global batch")
 
     def __init__(self, config: JointConfig = JointConfig(), *, device=None):
         super().__init__()

@@ -17,12 +17,17 @@ parameters given to them get slots and updates: frozen parameters are left
 out, the counterpart of ``optax.set_to_zero()`` under ``multi_transform``.
 Both keep ``step``, ``m`` and ``v`` per tensor: the checkpoint's ``count``,
 ``mu`` and ``nu``, in the same chain layout (``{"0": adam, "1": {}}``).
+Under FSDP a parameter is a shard (``parallel/mesh.py``): the update runs
+on its local tensor and its ``m`` and ``v`` are the same rows, with the
+same arithmetic.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 
 class _Adam(torch.optim.Optimizer):
@@ -40,12 +45,14 @@ class _Adam(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 state = self.state[p]
+                # an FSDP shard is updated through its local tensor, its slots the same shard's
+                w = mesh.local(p)
                 if not state:
                     state["step"] = 0
-                    state["m"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    state["v"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["m"] = torch.zeros_like(w, memory_format=torch.preserve_format)
+                    state["v"] = torch.zeros_like(w, memory_format=torch.preserve_format)
                 state["step"] += 1
-                self._update(p, p.grad, state, group)
+                self._update(w, mesh.local(p.grad), state, group)
 
     def _update(self, p, g, state, group) -> None:
         raise NotImplementedError

@@ -96,6 +96,9 @@ class ProjectTask(nn.Module):
     reads_mfcc = False
     eval_metric = "mse"
     eval_mode = "min"
+    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
+    one_device_reason = ("the projection task trains on one device only: the batch-hard triplet mining covers the "
+                         "global batch, and the audio encoder's BN trains")
 
     def __init__(self, config: ProjectConfig = ProjectConfig(), *, device=None):
         super().__init__()

@@ -64,6 +64,9 @@ class ReconstructTask(nn.Module):
     reads_mfcc = False  # no model reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
+    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
+    one_device_reason = ("the reconstruction task trains on one device only: the audio and video VAEs train BN "
+                         "layers with gradients, and the VAE noise is drawn per rank")
 
     def __init__(self, config: ReconstructConfig = ReconstructConfig(), *, device=None):
         super().__init__()

@@ -59,10 +59,32 @@ With ``cache_trunk_features=True``, ``trunk_bn="frozen"`` and batches that
 carry ``window_ids``, a step takes the trunk's features from the first tier
 that holds all of them (``train/feature_cache.py``): the device pool; the
 pool plus host rows (the mixed tier); the host tier, backed by the disk
-tier; else it runs the trunk once and stores the features (the fill). The
+tier. Where some windows are in no tier, the trunk runs on those rows only
+and the rest come from the tiers (the partial tier); where none is, it
+runs once on the batch (the fill). What the trunk computed is stored. The
 step then runs ``conv_map``, the generator forward and backward and TF1
 Adam on them: the cached step. ``trunk_runs`` counts the trunk forwards the
 trainer ran, ``last_tier`` names the tier of the last cached step.
+
+On more than one rank (``parallel/mesh.py``: ``mesh.launch``, ``torchrun``,
+or ``cli/main.py --num_devices N``) the generation task trains as JAX's
+does over its ``data`` mesh, one process a device: each rank is handed its
+own rows of every global batch (the loader's ``shard_index``/
+``shard_count``), the trained modules (``conv_map``, the generator)
+are wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``:
+the train-mode BN statistics are all-reduced in the layers, so the running
+averages agree already) or, with ``parallel.fsdp``, sharded by FSDP2 as
+JAX's ``fsdp_sharding`` places them (``fsdp_dims``; the tensors JAX keeps
+whole stay whole, their gradients averaged here); the VAE noise is drawn
+for the global batch and each rank keeps its rows; the reported metrics
+and ``evaluate``'s sums are all-reduced; only rank 0 writes files (a
+barrier follows each write); the feature cache keeps each rank's tiers over
+the windows of its rows, keyed by global window ids (a window that moves
+to another rank after a reshuffle misses there: the partial tier runs the
+trunk on such rows alone). Other tasks (their ``one_device_reason``),
+correspondence and ``tensor_parallel > 1`` raise at more than one rank,
+each with its reason (``ROADMAP.md`` Queue 1, item 8.1, second
+half). With one process nothing of this runs.
 
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
@@ -88,9 +110,11 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig
+from acoustic_image_generation_tpu_torch import bridge
+from acoustic_image_generation_tpu_torch.core.config import SECOND_HALF, ExperimentConfig, refuse_tensor_parallel
 from acoustic_image_generation_tpu_torch.data import preprocess
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
+from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
@@ -123,11 +147,34 @@ def data_generator(seed: int, *index: int) -> torch.Generator:
     return torch.Generator().manual_seed(s)
 
 
+def fsdp_dims(task: GenerationTask, world: int) -> dict:
+    """The port dim each trained tensor of ``task`` is sharded on over
+    ``world`` ranks, or None (kept whole): JAX's ``fsdp_sharding`` rule
+    (``mesh.fsdp_axis``) on the tensor's flax shape, mapped through its
+    layout (``bridge.flax_layout``). Keyed by the tensor."""
+    out = {}
+    for tensor, coll, path, fn in bridge.targets(task):
+        if coll != "params" or not tensor.requires_grad:
+            continue
+        shape, axes = bridge.flax_layout(fn, tuple(tensor.shape))
+        axis = mesh.fsdp_axis(shape, world)
+        if axis is not None and axes[axis] is None:
+            raise ValueError(f"{'/'.join(path)}: JAX shards flax axis {axis}, which is not one axis of the "
+                             f"port's layout {tuple(tensor.shape)}")
+        out[tensor] = None if axis is None else axes[axis]
+    return out
+
+
 def as_raw(batch) -> dict:
     """A ``RawBatch`` or a dict -> the dict of its arrays the steps read."""
     if isinstance(batch, dict):
         return batch
     return {k: getattr(batch, k) for k in RAW_KEYS if getattr(batch, k, None) is not None}
+
+
+def _rows(raw: dict) -> int:
+    """The frames of a batch of clips: the rows of its VAE noise."""
+    return raw["audio"].shape[0] * raw["audio"].shape[1]
 
 
 def _as_tensor(a):
@@ -166,7 +213,7 @@ class Trainer:
         self._resume_meta = None  # a crash checkpoint's position, set by restore, read by fit
         self.qtrunk = None  # the int8 trunk of a generation task, built from the first batch
         self.trunk_runs = 0  # trunk forwards run by the steps and evaluations
-        self.last_tier = None  # device | mixed | host | fill: the last cached step's source
+        self.last_tier = None  # device | mixed | host | partial | fill: the last cached step's source
         self.feature_cache = None
         self.device_cache = None
         self._feat_store_dtype = None
@@ -182,6 +229,70 @@ class Trainer:
             self._eval_caches = weakref.WeakKeyDictionary()
             if cfg.cache_device_bytes > 0:
                 self.device_cache = fc.DeviceFeatureCache(cfg.cache_device_bytes)
+        self._loss = task.loss  # the train forward and objective; DistributedDataParallel's wrapper on > 1 rank
+        self._sharded = []  # FSDP2 modules
+        self._whole = []  # trained tensors FSDP keeps whole: gradients averaged in _step_core
+        refuse_tensor_parallel(self.config)
+        if mesh.active():
+            if task.one_device_reason is None:
+                self._distribute()
+            elif mesh.world() > 1:
+                raise NotImplementedError(f"{type(task).__name__}: {task.one_device_reason} ({SECOND_HALF})")
+
+    def _distribute(self) -> None:
+        """A rank of a group (of one, too): wrap the trained modules in DDP,
+        or shard them with FSDP2 (``parallel.fsdp``)."""
+        task = self.task
+        if not self.config.parallel.fsdp:
+            self._loss = torch.nn.parallel.DistributedDataParallel(task, broadcast_buffers=False)
+            return
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        with torch.no_grad():  # every rank starts from rank 0's state, as DDP's construction does
+            for t in (*task.parameters(), *task.buffers()):
+                torch.distributed.broadcast(t.data, 0)
+        dims = fsdp_dims(task, mesh.world())
+        for module in (task.resnet.conv_map, task.generator):
+            for p in module.parameters():  # FSDP2 shards contiguous tensors only (the convs are channels-last)
+                p.data = p.data.contiguous()
+            whole = [p for p in module.parameters() if dims[p] is None]
+            # conv_map's kernel is read again by the L2 term after its forward: keep it gathered until backward
+            fully_shard(module, shard_placement_fn=lambda p: Shard(dims[p]), reshard_after_forward=False,
+                        ignored_params=set(whole) or None)
+            self._sharded.append(module)
+            self._whole += whole
+
+    def _reshard(self) -> None:
+        """Put FSDP's modules back to their shards after a forward without
+        backward (an evaluation), where the optimizer and checkpoints find
+        them."""
+        for module in self._sharded:
+            module.reshard()
+
+    def _rank_noise(self, eps, generator, rows: int):
+        """More than one rank: ``(eps, generator)`` for this rank's ``rows``
+        noise rows. The noise of the global batch (given, or drawn from
+        ``generator`` at the global shape, as one device draws it), cut to the
+        rank's rows."""
+        if eps is not None:
+            return mesh.shard_rows(eps), None
+        if self.cfg.ae:  # the deterministic AE draws nothing
+            return None, generator
+        dim = self.task.generator.vae.latent_dim
+        noise = torch.randn((rows * mesh.world(), dim), generator=generator, device=self.device)
+        return mesh.shard_rows(noise), None
+
+    def _average_whole_grads(self) -> None:
+        """FSDP: average the gradients of the tensors it keeps whole (its
+        reduce-scatter covers the sharded ones), as DDP does: divided by the
+        ranks, then summed in one all-reduce."""
+        grads = [p.grad for p in self._whole if p.grad is not None]
+        if not grads:
+            return
+        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]).div_(mesh.world()))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def init_state(self) -> TrainState:
         """Step 0 and Adam over the task's trainable parameters (those that
@@ -268,18 +379,25 @@ class Trainer:
         """Shared body of the full and cached steps; ``trunk_feat`` (cached
         features, in the storage dtype) bypasses the trunk."""
         eps, generator = self._noise(state.step, eps)
+        if mesh.world() > 1:
+            eps, generator = self._rank_noise(eps, generator, _rows(raw))
         with no_tf32():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, state.step))
             kw = {}
             if trunk_feat is not None:
                 kw["trunk_feat"] = trunk_feat.to(self.task.dtype)  # f8 storage back to the compute dtype
-            total, metrics = self.task.loss(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
-                                            moddrop=moddrop, **kw)
+            total, metrics = self._loss(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
+                                        moddrop=moddrop, **kw)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
+            self._average_whole_grads()
             state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh.world() > 1:  # each term is a mean over equal rows: the global mean is the ranks' mean
+            values = mesh.all_reduce_(torch.stack([v.float() for v in metrics.values()]), "mean")
+            metrics = dict(zip(metrics, values.unbind()))
+        return state, metrics
 
     def _trunk_features(self, raw: dict) -> torch.Tensor:
         """(B, F, 224, 298, 3) uint8 -> (B*F, 14, 19, 2048) frozen-trunk
@@ -296,8 +414,10 @@ class Trainer:
 
     def _train_features(self, raw: dict) -> torch.Tensor:
         """The batch's trunk features from the first tier that holds all of
-        them, or from one trunk run (then stored: into the device pool while
-        it has room, the host tier after)."""
+        them; else from the tiers and one trunk run on the rows they lack
+        (``_partial_features``), or one on the whole batch when they hold
+        none of it (then stored: into the device pool while it has room, the
+        host tier after)."""
         ids = [int(w) for w in raw["window_ids"]]
         valid = int(raw.get("valid", len(ids)))
         pool = self.device_cache
@@ -325,14 +445,45 @@ class Trainer:
         if feat is not None:
             self.last_tier = "host"
             return feat.to(self.device, non_blocking=True)
+        frames = raw["video"].shape[1]
+        held = {}  # row -> its cached (frames, 14, 19, 2048) features
+        for i, wid in enumerate(ids[:valid]):
+            if pool is not None and wid in pool.slots:
+                held[i] = pool.buf[pool.slots[wid]]
+            elif wid in self.feature_cache:
+                f = self.feature_cache.get(wid)
+                if f is not None:
+                    held[i] = f
+        if held:
+            return self._partial_features(raw, ids, valid, frames, held)
         self.last_tier = "fill"
         feat = self._trunk_features(raw)
-        frames = raw["video"].shape[1]
         if pool is not None:
             pool.put_batch(ids, valid, feat, frames)
         self._persist_host_rows(self.feature_cache, ids, valid, frames, feat,
                                 skip=pool.slots if pool is not None else ())
         return feat
+
+    def _partial_features(self, raw: dict, ids: list, valid: int, frames: int, held: dict) -> torch.Tensor:
+        """The partial tier: the tiers hold the rows of ``held`` and no tier
+        the other valid rows (on more than one rank, windows a reshuffle
+        moved here from another rank's cache). The trunk runs on those rows
+        alone, which are stored as a fill's are; the batch is put together
+        on the device, padded rows repeating the last valid one."""
+        todo = [i for i in range(valid) if i not in held]
+        video = _as_tensor(raw["video"])[torch.tensor(todo)]
+        new = self._trunk_features({"video": video})
+        pool = self.device_cache
+        new_ids = [ids[i] for i in todo]
+        if pool is not None:
+            pool.put_batch(new_ids, len(todo), new, frames)
+        self._persist_host_rows(self.feature_cache, new_ids, len(todo), frames, new,
+                                skip=pool.slots if pool is not None else ())
+        rows = dict(held)
+        rows.update(zip(todo, fc.as_bytes(new).view(len(todo), frames, *new.shape[1:])))
+        order = [rows[min(i, valid - 1)] for i in range(len(ids))]
+        self.last_tier = "partial"
+        return torch.cat([fc.as_bytes(r).to(self.device, non_blocking=True) for r in order]).view(new.dtype)
 
     def _persist_host_rows(self, cache, ids, valid: int, frames: int, feat, skip=()) -> None:
         """Store a freshly computed batch of features into a host-tier
@@ -404,12 +555,15 @@ class Trainer:
         clips of each half (JAX's ``_eval_step_impl``). Padded rows are
         selected out, not multiplied by 0: their zero acoustic frames
         normalize to NaN (JAX's jitted mask multiply comes out the same)."""
+        if mesh.world() > 1:
+            eps, generator = self._rank_noise(eps, generator, _rows(raw))
         with torch.no_grad():
             batch = self._prepare(raw, generator=shuffle, train=False)
             if trunk_feat is not None:
                 trunk_feat = trunk_feat.to(self.task.dtype)
             losses, _ = self.task.eval_losses(batch, eps=eps, generator=generator, qtrunk=self.qtrunk,
                                               trunk_feat=trunk_feat)
+        self._reshard()
         n_total = next(iter(losses.values())).shape[0]
         clips = raw["audio"].shape[0]
         valid = int(raw.get("valid", clips))
@@ -463,6 +617,9 @@ class Trainer:
             count = n if count is None else count + n
         if count is None:
             return {}
+        if mesh.world() > 1:  # every rank's valid rows: the one-device sums
+            totals = mesh.all_reduce_(torch.stack([*sums.values(), count]))
+            sums, count = dict(zip(sums, totals[:-1])), totals[-1]
         count = max(float(count), 1.0)
         return {k: float(v) / count for k, v in sums.items()}
 
@@ -478,15 +635,19 @@ class Trainer:
         epoch numbering from its step, or, after ``restore`` of a crash
         checkpoint, from the batch the crash stopped at."""
         cfg = self.config
-        os.makedirs(self.run_dir, exist_ok=True)
-        cfg.save(os.path.join(self.run_dir, "configuration.txt"))
-        metrics_log = ckpt.MetricsWriter(self.run_dir)
+        main = mesh.is_main()  # the one rank that writes files
+        if main:
+            os.makedirs(self.run_dir, exist_ok=True)
+            cfg.save(os.path.join(self.run_dir, "configuration.txt"))
+        metrics_log = ckpt.MetricsWriter(self.run_dir) if main else None
         media_logger = None
-        if cfg.run.tensorboard:
+        if cfg.run.tensorboard and main:
             from acoustic_image_generation_tpu_torch.utils.logger import Logger
 
             media_logger = Logger(os.path.join(cfg.run.tensorboard, cfg.run.exp_name))
-        tracker = ckpt.BestTracker(self.run_dir, cfg.run.exp_name, mode=getattr(self.task, "eval_mode", "min"))
+        tracker = ckpt.BestTracker(self.run_dir, cfg.run.exp_name, mode=getattr(self.task, "eval_mode", "min"),
+                                   write=main)
+        mesh.barrier()
 
         start_epoch = skip_steps = 0
         if state is None:
@@ -527,20 +688,24 @@ class Trainer:
                 val = self.evaluate(state, valid_loader, epoch)
                 val_loss = val[self.task.eval_metric]
                 clips_per_sec = n_steps * train_loader.batch_size / max(dt, 1e-9)
-                metrics_log.write({"epoch": epoch, "train": last_metrics, "valid": val, "steps": n_steps,
-                                   "seconds": dt, "clips_per_sec": clips_per_sec})
-                print(f"{datetime.now()}: {cfg.run.exp_name} - Epoch: {epoch}\t"
-                      f"Validation_{self.task.eval_metric}_Loss: {val_loss:6f}\t"
-                      f"({clips_per_sec:.1f} clips/s)", flush=True)
-                if media_logger is not None:
-                    media_logger.log_scalars({f"valid/{k}": v for k, v in val.items()}, epoch)
+                if main:
+                    metrics_log.write({"epoch": epoch, "train": last_metrics, "valid": val, "steps": n_steps,
+                                       "seconds": dt, "clips_per_sec": clips_per_sec})
+                    print(f"{datetime.now()}: {cfg.run.exp_name} - Epoch: {epoch}\t"
+                          f"Validation_{self.task.eval_metric}_Loss: {val_loss:6f}\t"
+                          f"({clips_per_sec:.1f} clips/s)", flush=True)
+                if cfg.run.tensorboard:  # every rank runs the forward (FSDP gathers); rank 0 logs
+                    if media_logger is not None:
+                        media_logger.log_scalars({f"valid/{k}": v for k, v in val.items()}, epoch)
                     self._log_media(media_logger, valid_loader, epoch)
-                is_best = tracker.update(epoch, val_loss)
+                is_best = tracker.update(epoch, val_loss)  # the same on every rank: val is all-reduced
+                mesh.barrier()
                 if epoch % 10 == 0 or is_best:
                     if saver is not None:
-                        saver.save(self.run_dir, epoch, state)
+                        saver.save(self.run_dir, epoch, state, write=main)
                     else:
-                        ckpt.save_checkpoint(self.run_dir, epoch, state)
+                        ckpt.save_checkpoint(self.run_dir, epoch, state, write=main)
+                    mesh.barrier()
         finally:
             unwinding = sys.exc_info()[1] is not None
             try:
@@ -555,11 +720,20 @@ class Trainer:
             finally:
                 if media_logger is not None:
                     media_logger.close()
+        mesh.barrier()
         return state
 
     def _crash_checkpoint(self, state: TrainState, epoch: int, step_in_epoch: int) -> None:
         """Write ``epoch_interrupted_{epoch}.ckpt`` and its position, unless
-        the fault tore the state inside the optimizer's update."""
+        the fault tore the state inside the optimizer's update. On more than
+        one rank, rank 0 writes its replica under DDP; under FSDP none is
+        written, since gathering the shards needs every rank in a
+        collective, and a failing rank may never get there."""
+        if self._sharded:
+            print("no crash checkpoint written: FSDP's shards gather only with every rank", file=sys.stderr)
+            return
+        if not mesh.is_main():
+            return
         try:
             path = ckpt.save_checkpoint(self.run_dir, f"interrupted_{epoch}", state)
         except ckpt.TornStateError as e:
@@ -580,10 +754,14 @@ class Trainer:
         if raw_batch is None:
             return
         raw = as_raw(raw_batch)
+        eps, generator = None, eval_generator(self.cfg.seed, 0, self.device)
+        if mesh.world() > 1:
+            eps, generator = self._rank_noise(None, generator, _rows(raw))
         with torch.no_grad():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, _EVAL, 0), train=False)
-            _, aux = self.task.eval_losses(batch, generator=eval_generator(self.cfg.seed, 0, self.device))
-        if not isinstance(aux, torch.Tensor):
+            _, aux = self.task.eval_losses(batch, eps=eps, generator=generator)
+        self._reshard()
+        if logger is None or not isinstance(aux, torch.Tensor):  # a rank that only took part in FSDP's gathers
             return
         aux = aux.cpu().numpy()
         if aux.ndim != 4:
@@ -598,17 +776,23 @@ class Trainer:
         """``evaluate`` without the eval cache (one pass), written to
         ``test_accuracy{_epoch}.txt``."""
         results = self.evaluate(state, test_loader, use_cache=False)
-        os.makedirs(self.run_dir, exist_ok=True)
-        suffix = f"_{epoch}" if epoch is not None else ""
-        with open(os.path.join(self.run_dir, f"test_accuracy{suffix}.txt"), "w") as f:
-            parts = " - ".join(f"{k}: {v:6f}" for k, v in sorted(results.items()))
-            f.write(f"{datetime.now()}: {self.config.run.exp_name} - {parts}\n")
+        if mesh.is_main():
+            os.makedirs(self.run_dir, exist_ok=True)
+            suffix = f"_{epoch}" if epoch is not None else ""
+            with open(os.path.join(self.run_dir, f"test_accuracy{suffix}.txt"), "w") as f:
+                parts = " - ".join(f"{k}: {v:6f}" for k, v in sorted(results.items()))
+                f.write(f"{datetime.now()}: {self.config.run.exp_name} - {parts}\n")
+        mesh.barrier()
         return results
 
     # ---------------------------------------------------------------- io
 
     def save(self, name, state: TrainState) -> str:
-        return ckpt.save_checkpoint(self.run_dir, name, state)
+        """Write ``epoch_{name}.ckpt`` (rank 0; every rank gathers FSDP's
+        shards)."""
+        path = ckpt.save_checkpoint(self.run_dir, name, state, write=mesh.is_main())
+        mesh.barrier()
+        return path
 
     def restore(self, path: str, template_state: TrainState) -> TrainState:
         """Restore a checkpoint into ``template_state`` (in place). A crash

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --embed-workflow
     python3 chip_smoke.py --task-families
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --parallel
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -20,7 +21,8 @@ alone, ``--workflow`` phase 11 alone, ``--classify`` phase 12 alone (with
 the ``sosfilt`` check), ``--embed-workflow`` phase 13 alone,
 ``--task-families`` phase 14 alone (with the ``conv_chain`` checks at
 UNetEnergy's chains), ``--serving`` phase 15 alone (on its own shards and
-a checkpoint of random weights); none prints a result line. Phases, each fatal on
+a checkpoint of random weights), ``--parallel`` phase 16 alone (on its own
+shards); none prints a result line. Phases, each fatal on
 failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
@@ -176,11 +178,40 @@ failure:
    gradients, and the optimizer step's device time for it and TF1's Adam;
    two CLI epochs with ``optim.tf1_adam=False`` (optax's Adam), the
    validation MSE falling, and one resumed epoch;
-16. print the card's name and power limit, one ``{"kernels": [...]}`` line
+16. the generation task on ranks (``parallel/mesh.py``), at full width,
+   bf16, 64-clip global batches, 3 steps a case, each rank's launch counts
+   reset just before its steps and read just after (1 ``mfcc``, 12
+   ``conv_chain``, 29 backward a rank a step; 36 ``matmul_stats`` with
+   ``fused_bn_stats``, 36 ``qgemm_s8`` int8): the kernels built once here,
+   before any rank starts; one process, run twice, is the reference and its
+   own spread (``conv_chain``'s dW atomics); one rank over NCCL through
+   ``mesh.launch`` (DDP-wrapped, train-BN with ``fused_bn_stats`` and
+   frozen), its step-1 loss equal to the one process's to the bit (the
+   weight grad's atomics make later steps differ between any two runs),
+   its updates and running averages held as the two ranks' below, its step
+   median beside the plain trainer's; two ranks on the one card over gloo (NCCL
+   refuses two ranks on one GPU), 32 clips each: DDP with train-BN and
+   ``fused_bn_stats``, the int8 trunk (the ranks' amaxes equal to the one
+   process's calibration) and FSDP (held to DDP, the Adam moments a rank
+   printed), then DDP and FSDP in f32 on 4 clips of 2 frames, each rank's
+   state equal to the other's, the losses within 1e-5 relative, each
+   trained tensor's update held to the one process's (DDP, int8, f32) or
+   DDP's (FSDP) by the CPU tests' trajectory bounds (every entry within 2
+   lr, 99% within lr/4, 10% in L2: all three in f32; at bf16 the first,
+   the others printed, since the split batch's own bf16 roundings go past
+   them and past 3x the atomics' spread, printed beside it), the running
+   averages within 3x that spread or 2^-5 (bf16; 1e-3 in f32) of
+   how far they moved, step times marked "gloo, host-staged"; the
+   cached path from phase 10's shards over 3 epochs through each rank's
+   host-sharded loader, its fill steps against the uncached steps on the
+   same rows, the trunk runs a rank an epoch; with two or more cards, DDP
+   and FSDP over NCCL on up to four and ``cli.main --num_devices``;
+17. print the card's name and power limit, one ``{"kernels": [...]}`` line
    (each kernel's launches also over phase 11's passes, ``workflow_launches``,
    over phase 13's, ``embed_workflow_launches``, over phase 14's,
-   ``task_families_launches``, and over phase 15's, ``serving_launches``),
-   and last ``{"ok": true, "device": {...}}``.
+   ``task_families_launches``, over phase 15's, ``serving_launches``, and
+   over rank 0's runs of phase 16, ``parallel_launches``), and last
+   ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 (set in ``main``), so "f32" means IEEE f32 on both sides.
@@ -2200,8 +2231,10 @@ TEST_MATCH_TOL = dict(rel=1e-4, abs=1e-6)
 
 def workflow_flags(lists: dict, root: Path, exp_name: str, *extra) -> list:
     """``cli.main`` flags of the flagship at full width, bf16 (the CLI's
-    defaults), 64-clip batches, on the card."""
-    return ["--embedding", "1", "--mfcc", "1", "--batch_size", str(WORKFLOW_CLIPS), "--seed", str(SEED),
+    defaults), 64-clip batches, on one card (``--num_devices 1``: unset, the
+    CLI would take every visible card)."""
+    return ["--embedding", "1", "--mfcc", "1", "--num_devices", "1", "--batch_size", str(WORKFLOW_CLIPS),
+            "--seed", str(SEED),
             "--train_file", lists["training"], "--valid_file", lists["validation"],
             "--test_file", lists["testing"], "--checkpoint_dir", str(root / "runs"), "--exp_name", exp_name,
             "--device", "cuda", *extra]
@@ -4019,6 +4052,360 @@ def serving_phase(counters: dict, lists: dict, root: Path, checkpoint: str) -> d
     return total
 
 
+# ------------------------------------------------------------ phase 16
+
+PAR_CLIPS = 64  # the global batch: 32 clips a rank at two ranks
+PAR_STEPS = 3
+PAR_PER_STEP = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 29}  # a rank's launches a step
+PAR_CASES = {  # GenerationConfig of each case, and whether the trunk's 1x1 convs run on matmul_stats
+    "train_bn": (dict(trunk_bn="train"), True),
+    "frozen": (dict(trunk_bn="frozen"), False),
+    "int8": (dict(trunk_bn="frozen", trunk_quant="int8", fused_qgemm=True), False),
+    "cached": (dict(trunk_bn="frozen", cache_trunk_features=True), False),
+    "f32": (dict(trunk_bn="train", compute_dtype="float32"), False),
+}
+PAR_LOSS_TOL = 1e-6  # a cached step against the uncached one on the same rows, relative
+# running averages: within this share of how far the steps moved them, at least (3x the one-process spread
+# otherwise). f32: the CPU tests' 1e-3. bf16: each rank's trunk runs its convolutions at half the batch, whose
+# bf16 roundings differ and compound with depth (read on an H100 80GB HBM3 at 700 W, as a share of how far
+# the average moved: 1.3e-3 at block3_unit_4, 6.1e-3 at block4_unit_3), so 2^-5 there; that both ranks hold
+# the same averages, the f32 case and the CPU tests check the statistics are the global batch's.
+PAR_STAT_FLOOR = {"bfloat16": 2.0**-5, "float32": 1e-3}
+PAR_LR = 1e-4  # GenerationConfig's learning rate: the scale of one Adam step
+# Ranks against one process, each trained tensor's update (final - initial), by tests/test_torch_train.py's
+# trajectory criteria: every entry within 2 lr, 99% within lr/4, the whole within 10% in L2. In f32, at the
+# same 64-clip global batch and full width, all three are held: there the split batch's roundings sit far below
+# the gradients, so a wrong average (a sum, one rank's gradient) shows. At bf16 only the first is held and the
+# others printed beside the same shares of the N=1 run against the plain trainer (the weight grad's atomics
+# alone): each rank's convolutions run at half the batch (cuDNN picks its algorithms by shape) and the BN
+# statistics add two partial sums, so bf16 roundings move, and Adam turns a gradient at rounding level into a
+# full +-lr step (read on an H100 80GB HBM3 at 700 W: a bias's 99th percentile 1.4-1.5 of lr/4 and a dense
+# kernel's L2 share 3.5, against 0.2-0.3 and 0.24-0.29 at N=1; in f32 at this batch 0.10 and 0.09).
+PAR_UPDATE_TOL = dict(max=2 * PAR_LR, q99=PAR_LR / 4, l2=0.1)
+PAR_RANK_CASES = ("ddp", "int8", "fsdp", "f32 ddp", "f32 fsdp", "uncached")  # par_ranks' par_steps runs
+PAR_LOSS_REL = 1e-5  # each step's loss against one process, relative
+
+
+def par_counters() -> dict:
+    from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
+    from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
+    from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
+    from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+
+    return {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
+            "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8}
+
+
+def par_batches(seed: int, clips: int = PAR_CLIPS, frames: int = 12) -> list:
+    """The PAR_STEPS global batches of ``clips`` clips; a rank keeps its
+    rows."""
+    from acoustic_image_generation_tpu_torch.parallel import mesh
+
+    return [{k: mesh.shard_rows(v) for k, v in train_batch(np.random.default_rng(seed + 300 + s), clips,
+                                                          frames).items()}
+            for s in range(PAR_STEPS)]
+
+
+def par_trainer(seed: int, case: str, fsdp: bool = False):
+    from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig, ParallelConfig
+    from acoustic_image_generation_tpu_torch.models.resnet import ConvBN
+    from acoustic_image_generation_tpu_torch.parallel import mesh
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+
+    config, fused = PAR_CASES[case]
+    task = GenerationTask(GenerationConfig(seed=seed, **config), device=mesh.device() or "cuda").init_params(seed)
+    for m in task.resnet.modules():  # ResNet50(fused_bn_stats=True)
+        if fused and isinstance(m, ConvBN) and m is not task.resnet.conv_map:
+            m.fused_stats = not m.fixed_pad and m.weight.shape[2:] == (1, 1) and m.stride == 1
+    return Trainer(task, ExperimentConfig(parallel=ParallelConfig(compute_dtype="bfloat16", fsdp=fsdp,
+                                                                  num_devices=mesh.world())))
+
+
+def par_steps(seed: int, case: str, batches: list, fsdp: bool = False, label: str = "") -> dict:
+    """Train ``batches`` (this rank's rows) from the seed's weights, the
+    launch counts reset just before and read just after; returns the
+    losses, step times, launches a step, the whole trained tensors and BN
+    running averages (FSDP's gathered) and their digest, the Adam moments'
+    bytes, the int8 amaxes and the peak memory."""
+    import hashlib
+
+    from acoustic_image_generation_tpu_torch.parallel import mesh
+
+    trainer = par_trainer(seed, case, fsdp)
+    state = trainer.init_state()
+    counters = par_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times, terms = [], [], []
+    for raw in batches:
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, raw)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+        terms.append({k: float(v) for k, v in metrics.items()})
+    total = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: v / len(batches) for k, v in total.items()}
+    tensors = {n: mesh.full(p).detach().float().cpu() for n, p in trainer.task.named_parameters() if p.requires_grad}
+    tensors.update({"buffer:" + n: b.detach().cpu().clone() for n, b in trainer.task.named_buffers()})
+    digest = hashlib.sha1(b"".join(t.numpy().tobytes() for t in tensors.values())).hexdigest()
+    moments = sum(s["m"].numel() * s["m"].element_size() * 2 for s in state.optimizer.state.values())
+    out = dict(losses=losses, metrics=terms, times=times, launches=launches, total=total, digest=digest,
+               moments=moments,
+               peak=torch.cuda.max_memory_allocated() / 2**30,
+               amax=trainer.qtrunk.act.cpu().numpy() if trainer.qtrunk is not None else None,
+               tensors=tensors if mesh.is_main() else None)
+    del trainer, state
+    torch.cuda.empty_cache()
+    if label:
+        log(f"parallel {label}: losses {[f'{v:.6g}' for v in losses]}, step ms {[round(t, 1) for t in times]}, "
+            f"launches a step {launches}, Adam moments {moments / 2**20:.1f} MiB, peak {out['peak']:.2f} GiB")
+    return out
+
+
+def par_gap(a: dict, b: dict) -> float:
+    """Largest |a - b| over the trained tensors."""
+    return max(float((a[k] - b[k]).abs().max()) for k in a if not k.startswith("buffer:"))
+
+
+def par_update_check(label: str, got: dict, want: dict, init: dict, held: int = 1) -> float:
+    """Each trained tensor's update in ``got`` against ``want``'s, from
+    ``init``, at PAR_UPDATE_TOL: the first ``held`` of its bounds (largest
+    gap, 99th percentile, L2) held, the rest logged; returns the worst share
+    of a held bound."""
+    worst, rest = 0.0, [(0.0, "")] * 3
+    for k, v in want.items():
+        if k.startswith("buffer:"):
+            continue
+        d_want = v - init[k]
+        gap = ((got[k] - init[k]) - d_want).abs().flatten()
+        shares = (float(gap.max()) / PAR_UPDATE_TOL["max"],
+                  float(torch.quantile(gap[:1 << 24].double(), 0.99)) / PAR_UPDATE_TOL["q99"],
+                  float(gap.norm()) / max(PAR_UPDATE_TOL["l2"] * float(d_want.norm()), 1e-30))
+        rest = [max(r, (v, k)) for r, v in zip(rest, shares)]
+        worst = max(worst, *shares[:held])
+    log(f"parallel {label}: updates at {worst:.2f} of the held bounds; worst shares "
+        + ", ".join(f"{name} {v:.2f} ({k})" for name, (v, k) in zip(("max", "99%", "L2"), rest))
+        + f", the first {held} held")
+    if worst > 1:
+        raise AssertionError(f"parallel {label}: an update past its bounds ({worst:.2f})")
+    return worst
+
+
+def par_stats_check(label: str, got: dict, want: dict, init: dict, gap: float, dtype: str) -> float:
+    """The BN running averages of ``got`` against ``want``: each within
+    3x ``gap`` (two one-process runs' largest running-average difference)
+    or PAR_STAT_FLOOR[dtype] of how far the steps moved it, whichever is
+    larger. Logs the worst and returns its ratio to its limit."""
+    worst = (0.0, "")
+    for k, v in want.items():
+        if not k.startswith("buffer:"):
+            continue
+        moved = float((v - init[k]).abs().max())
+        limit = max(3 * gap, PAR_STAT_FLOOR[dtype] * moved)
+        err = float((got[k] - v).abs().max())
+        worst = max(worst, (err / limit if limit else 0.0 if err == 0 else float("inf"), k))
+    log(f"parallel {label}: running averages at {worst[0]:.2f} of their limits at worst ({worst[1]})")
+    if worst[0] > 1:
+        raise AssertionError(f"parallel {label}: running average {worst[1]} past its limit ({worst[0]:.2f})")
+    return worst[0]
+
+
+def par_launch_check(label: str, launches: dict, extra: dict) -> None:
+    want = dict(PAR_PER_STEP, **extra)
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"parallel {label}: {launches[k]} {k} launches a rank a step, expected {v}")
+
+
+def par_n1(seed: int) -> dict:
+    """Rank 0 of one over NCCL: the train-BN (``fused_bn_stats``) and frozen
+    cases through the DDP-wrapped trainer."""
+    batches = par_batches(seed)
+    return {case: par_steps(seed, case, batches, label=f"N=1 NCCL {case}") for case in ("train_bn", "frozen")}
+
+
+def par_ranks(seed: int, lists: dict) -> dict:
+    """One of two ranks on one card over gloo: DDP (train-BN with
+    ``fused_bn_stats``, int8), FSDP (train-BN), DDP and FSDP in f32 on the
+    same batches, then the cached path from the shards (3
+    epochs, host-sharded loader) after the uncached frozen steps on the same
+    first batches."""
+    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader
+    from acoustic_image_generation_tpu_torch.parallel import mesh
+
+    batches = par_batches(seed)
+    out = {"ddp": par_steps(seed, "train_bn", batches, label=f"rank {mesh.rank()} DDP train_bn (gloo, host-staged)"),
+           "int8": par_steps(seed, "int8", batches, label=f"rank {mesh.rank()} DDP int8 (gloo, host-staged)"),
+           "fsdp": par_steps(seed, "train_bn", batches, fsdp=True,
+                             label=f"rank {mesh.rank()} FSDP train_bn (gloo, host-staged)")}
+    out["f32 ddp"] = par_steps(seed, "f32", batches, label=f"rank {mesh.rank()} DDP f32 (gloo, host-staged)")
+    out["f32 fsdp"] = par_steps(seed, "f32", batches, fsdp=True,
+                                label=f"rank {mesh.rank()} FSDP f32 (gloo, host-staged)")
+    loader = AcousticImageDataLoader(lists["training"], "training", PAR_CLIPS, shard_index=mesh.rank(),
+                                     shard_count=mesh.world(), use_native=True, seed=seed)
+    first = [dict(acoustic=b.acoustic, audio=b.audio, video=b.video) for b in loader.batches(0)]
+    out["uncached"] = par_steps(seed, "frozen", first, label=f"rank {mesh.rank()} uncached frozen (gloo)")
+    trainer = par_trainer(seed, "cached")
+    state = trainer.init_state()
+    counters = par_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, runs, times, tiers = [], [], [], []
+    for epoch in range(CACHE_EPOCHS):
+        before = trainer.trunk_runs
+        for raw in loader.batches(epoch):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, raw)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            tiers.append(trainer.last_tier)
+        runs.append(trainer.trunk_runs - before)
+    out["cached"] = dict(losses=losses, trunk_runs=runs, times=times, tiers=tiers,
+                         total={k: fn.launches for k, fn in counters.items()},
+                         launches={k: fn.launches / len(losses) for k, fn in counters.items()})
+    log(f"parallel rank {mesh.rank()} cached (gloo): {CACHE_EPOCHS} epochs, trunk runs {runs}, tiers {tiers}, "
+        f"losses {[f'{v:.6g}' for v in losses]}, step ms {[round(t, 1) for t in times]}")
+    return out
+
+
+def par_nccl(seed: int) -> dict:
+    """Rank r of N >= 2 cards over NCCL: DDP and FSDP train-BN steps."""
+    batches = par_batches(seed)
+    return {"ddp": par_steps(seed, "train_bn", batches, label="NCCL DDP train_bn"),
+            "fsdp": par_steps(seed, "train_bn", batches, fsdp=True, label="NCCL FSDP train_bn")}
+
+
+def parallel_phase(lists: dict, root: Path) -> dict:
+    """Phase 16: the generation task on ranks (``parallel/mesh.py``), at full
+    width, bf16, random weights and noise from the seed, 64-clip global
+    batches, each rank's launches reset just before its steps and read just
+    after. Returns rank 0's launches over the phase."""
+    from acoustic_image_generation_tpu_torch.parallel import mesh
+
+    from acoustic_image_generation_tpu_torch.data import native
+
+    if not native.available():  # built here, before the ranks' loaders need it
+        raise AssertionError(f"the native decoder does not build: {native.build_error()}")
+    batches = par_batches(SEED)
+    plain = {}
+    for case, runs in (("train_bn", 2), ("frozen", 1), ("int8", 1), ("f32", 1)):
+        plain[case] = [par_steps(SEED, case, batches, label=f"one process {case} run {i + 1}") for i in range(runs)]
+    del batches
+    def weights(case):
+        task = par_trainer(SEED, case).task
+        return {**{n: p.detach().float().cpu() for n, p in task.named_parameters() if p.requires_grad},
+                **{"buffer:" + n: b.detach().cpu().clone() for n, b in task.named_buffers()}}
+
+    init, f32_init = weights("train_bn"), weights("f32")
+    torch.cuda.empty_cache()
+    a, b = (r["tensors"] for r in plain["train_bn"])
+    gap_w = par_gap(a, b)
+    gap_s = max(float((a[k] - b[k]).abs().max()) for k in a if k.startswith("buffer:"))
+    log(f"parallel: two one-process train_bn runs differ by {gap_w:.3e} in the trained tensors (conv_chain's "
+        f"dW atomics) and {gap_s:.3e} in the running averages")
+
+    n1 = mesh.launch(par_n1, 1, SEED, device="cuda")[0]
+    for case in ("train_bn", "frozen"):
+        got, want = n1[case], plain[case][0]
+        par_launch_check(f"N=1 {case}", got["launches"], {"matmul_stats": 36 if case == "train_bn" else 0})
+        if got["losses"][0] != want["losses"][0]:
+            raise AssertionError(f"parallel N=1 {case}: step 1's loss {got['losses'][0]} is not the one-process "
+                                 f"{want['losses'][0]}")
+        err = par_gap(got["tensors"], want["tensors"])
+        share = par_update_check(f"N=1 {case}", got["tensors"], want["tensors"], init)
+        ratio = par_stats_check(f"N=1 {case}", got["tensors"], want["tensors"], init, gap_s, "bfloat16")
+        log(f"parallel N=1 over NCCL {case} ({card()}): losses equal at step 1, {got['losses']} against "
+            f"{want['losses']}; weights {err:.3e} from the one-process run ({err / gap_w if gap_w else 0:.1f}x "
+            f"the one-process spread), updates at {share:.2f} of their limits, running averages at {ratio:.2f} of "
+            f"their limit; step median {statistics.median(got['times'][1:]):.1f} ms against the plain trainer's "
+            f"{statistics.median(want['times'][1:]):.1f} ms (DDP's hooks, NCCL of one)")
+
+    ranks = mesh.launch(par_ranks, 2, SEED, lists, device="cuda:0")
+    r0, r1 = ranks
+    for case, ref, extra in (("ddp", plain["train_bn"][0], {"matmul_stats": 36}),
+                             ("int8", plain["int8"][0], {"qgemm_s8": 36}),
+                             ("fsdp", r0["ddp"], {"matmul_stats": 36}),
+                             ("f32 ddp", plain["f32"][0], None), ("f32 fsdp", plain["f32"][0], None)):
+        got = r0[case]
+        if got["digest"] != r1[case]["digest"] or got["losses"] != r1[case]["losses"]:
+            raise AssertionError(f"parallel {case}: the two ranks hold different states or losses")
+        if extra is not None:  # the f32 backward keeps a gate launch a layer
+            par_launch_check(case, got["launches"], extra)
+        err = par_gap(got["tensors"], ref["tensors"])
+        share = par_update_check(case, got["tensors"], ref["tensors"], init if extra is not None else f32_init,
+                                 held=1 if extra is not None else 3)
+        f32 = extra is None
+        ratio = par_stats_check(case, got["tensors"], ref["tensors"], f32_init if f32 else init, gap_s,
+                                "float32" if f32 else "bfloat16")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(got["losses"], ref["losses"]))
+        mse = max(abs(x["mse"] - y["mse"]) / abs(y["mse"]) for x, y in zip(got["metrics"], ref["metrics"]))
+        if rel > PAR_LOSS_REL:
+            raise AssertionError(f"parallel {case}: losses {got['losses']} against {ref['losses']} ({rel:.2e})")
+        log(f"parallel 2 ranks {case} against {'DDP' if case == 'fsdp' else 'one process'} ({card()}): weights "
+            f"{err:.3e} apart ({err / gap_w if gap_w else float('inf'):.1f}x the one-process spread), updates at "
+            f"{share:.2f} of their limits, running averages at {ratio:.2f} of theirs, losses {rel:.2e} and mse "
+            f"{mse:.2e} relative; step median {statistics.median(got['times'][1:]):.1f} ms (gloo, host-staged); Adam "
+            f"moments {got['moments'] / 2**20:.1f} MiB a rank (one process "
+            f"{plain['train_bn'][0]['moments'] / 2**20:.1f} MiB); peak {got['peak']:.2f} GiB a rank")
+    if not np.array_equal(r0["int8"]["amax"], plain["int8"][0]["amax"]) or \
+            not np.array_equal(r1["int8"]["amax"], plain["int8"][0]["amax"]):
+        raise AssertionError("parallel int8: the ranks' amaxes differ from the one-process calibration")
+    log(f"parallel int8: both ranks' {len(plain['int8'][0]['amax'])} amaxes equal the one-process calibration")
+    if not r0["fsdp"]["moments"] < 0.75 * r0["ddp"]["moments"]:
+        raise AssertionError("parallel fsdp: the Adam moments are not sharded")
+    for r, out in enumerate(ranks):
+        cached, uncached = out["cached"], out["uncached"]
+        par_launch_check(f"rank {r} cached", cached["launches"], {})
+        first = cached["losses"][:len(uncached["losses"])]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(first, uncached["losses"]))
+        if rel > PAR_LOSS_TOL or cached["trunk_runs"][0] != len(uncached["losses"]):
+            raise AssertionError(f"parallel rank {r} cached: fill losses {first} against uncached "
+                                 f"{uncached['losses']} ({rel:.2e}), trunk runs {cached['trunk_runs']}")
+        later = cached["tiers"][len(uncached["losses"]):]
+        if "fill" in later:
+            raise AssertionError(f"parallel rank {r} cached: tiers {cached['tiers']}: a later epoch ran the trunk "
+                                 "on a whole batch")
+        by_tier = {t: statistics.median([ms for ms, u in zip(cached["times"], cached["tiers"]) if u == t])
+                   for t in sorted(set(cached["tiers"]))}
+        log(f"parallel rank {r} cached against uncached on the same rows ({card()}): {rel:.2e} relative; trunk "
+            f"runs an epoch {cached['trunk_runs']}, tiers {cached['tiers']} (the partial tier runs the trunk on "
+            f"the windows that moved here from the other rank); median step ms by tier "
+            f"{ {t: round(v, 1) for t, v in by_tier.items()} }, uncached {statistics.median(uncached['times']):.1f}")
+    if torch.cuda.device_count() >= 2:
+        n = min(4, torch.cuda.device_count())
+        nccl = mesh.launch(par_nccl, n, SEED, device="cuda")
+        for case in ("ddp", "fsdp"):
+            err = par_gap(nccl[0][case]["tensors"], plain["train_bn"][0]["tensors"])
+            par_update_check(f"NCCL {n} GPUs {case}", nccl[0][case]["tensors"], plain["train_bn"][0]["tensors"], init)
+            if len({o[case]["digest"] for o in nccl}) != 1:
+                raise AssertionError(f"parallel NCCL {n} GPUs {case}: the ranks hold different states")
+            log(f"parallel {n} GPUs over NCCL {case} ({card()}): weights {err:.3e} from one process, step median "
+                f"{statistics.median(nccl[0][case]['times'][1:]):.1f} ms")
+        from acoustic_image_generation_tpu_torch.cli import main as pmain
+
+        flags = workflow_flags(lists, root, "parallel", "--num_epochs", "1", "--num_devices", str(n))
+        if pmain.main(["--mode", "train", *flags]) != 0:
+            raise AssertionError("parallel CLI --num_devices: train failed")
+        from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
+
+        run = root / "runs" / "parallel"
+        best = run / f"epoch_{BestTracker.read_best_epoch(str(run))}.ckpt"
+        if pmain.main(["--mode", "test", *flags, "--restore_checkpoint", str(best)]) != 0:
+            raise AssertionError("parallel CLI --num_devices: test failed")
+        log(f"parallel CLI --num_devices {n}: train and test over NCCL")
+    else:
+        log(f"parallel: this machine has {torch.cuda.device_count()} CUDA device; DDP and FSDP over NCCL on more "
+            "than one card are not run")
+    launches = {k: 0 for k in par_counters()}  # rank 0's, over the phase's ranks
+    for out in (n1["train_bn"], n1["frozen"], *(r0[c] for c in PAR_RANK_CASES), r0["cached"]):
+        for k, v in out["total"].items():
+            launches[k] += v
+    return launches
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -4063,9 +4450,10 @@ def phase_only(which: str) -> int:
     """``--cached`` (phase 10), ``--workflow`` (phase 11), ``--classify``
     (phase 12, after the ``sosfilt`` check), ``--embed-workflow`` (phase
     13), ``--task-families`` (phase 14, with the ``conv_chain`` checks at
-    UNetEnergy's chains) or ``--serving`` (phase 15, its CLI part on a
-    checkpoint of random weights): build the kernels of that path and run
-    the phase alone on its own shards. Prints no result line."""
+    UNetEnergy's chains), ``--serving`` (phase 15, its CLI part on a
+    checkpoint of random weights) or ``--parallel`` (phase 16): build the
+    kernels of that path and run the phase alone on its own shards. Prints
+    no result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
@@ -4088,6 +4476,8 @@ def phase_only(which: str) -> int:
                 "qgemm_s8": qg.qgemm_s8, "matmul_stats": cs.matmul_stats, "sosfilt": sf.filtfilt, "stft": st.stft}
     if which == "classify":
         log(json.dumps({"sosfilt": check_sosfilt(sf)}))
+    if which == "parallel":
+        build.build(("matmul_stats",))  # built here, before any rank starts
     with scratch_dir() as root:
         lists = write_shards(root)
         t0 = time.perf_counter()
@@ -4099,6 +4489,8 @@ def phase_only(which: str) -> int:
             embed_workflow(counters, lists, root)
         elif which == "task_families":
             task_families(counters, cc, lists, root, check_chains=True)
+        elif which == "parallel":
+            log(json.dumps({"parallel_launches": parallel_phase(lists, root)}))
         elif which == "serving":
             from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 
@@ -4131,6 +4523,8 @@ def main() -> int:
                       help="only run phase 13, TF1 checkpoints and the embedding workflow from the command line")
     only.add_argument("--task-families", action="store_const", const="task_families", dest="only",
                       help="only run phase 14, the reconstruction, projection and joint task families")
+    only.add_argument("--parallel", action="store_const", const="parallel", dest="only",
+                      help="only run phase 16: the generation task on ranks (DDP, FSDP, int8, cached)")
     only.add_argument("--serving", action="store_const", const="serving", dest="only",
                       help="only run phase 15: serving artifacts, HTTP, the artifact CLI, the box sweep, the "
                            "render step and optax's Adam")
@@ -4142,7 +4536,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving"):
+    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving", "parallel"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -4289,19 +4683,25 @@ def main() -> int:
         served = serving_phase(every, lists, root, str(best))
         torch.cuda.empty_cache()
         log(f"phase serving: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        par = parallel_phase(lists, root)
+        torch.cuda.empty_cache()
+        log(f"phase parallel: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
         k["embed_workflow_launches"] = embed_flow[k["name"]]
         k["task_families_launches"] = families[k["name"]]
         k["serving_launches"] = served[k["name"]]
+        k["parallel_launches"] = par.get(k["name"], 0)
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's and 15's passes
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
-             "workflow_launches", "embed_workflow_launches", "task_families_launches", "serving_launches")
+             "workflow_launches", "embed_workflow_launches", "task_families_launches", "serving_launches",
+             "parallel_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

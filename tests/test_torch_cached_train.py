@@ -148,6 +148,24 @@ def test_int8_filled_features_equal_the_int8_trunk(batch):
     assert (t.trunk_runs, t.last_tier) == (1, "mixed")
 
 
+@pytest.mark.parametrize("pool", [0, WINDOW], ids=["host", "pool"])
+def test_partial_tier_runs_the_trunk_on_the_missing_rows(loader, pool):
+    """A batch with one window cached and one in no tier (as a rank's are
+    after a reshuffle moved windows from another rank): the trunk runs on
+    the missing row alone, which is stored, and the step is the full
+    step."""
+    first, second = (as_raw(b) for b in list(loader.batches(0))[:2])
+    mixed = {k: np.concatenate([first[k][1:], second[k][:1]]) for k in first if k != "valid"}
+    full, t = trainer(), trainer(cache_trunk_features=True, cache_device_bytes=pool)
+    s_full, s_cached = full.init_state(), t.init_state()
+    for raw, tier, runs in ((first, "fill", 1), (mixed, "partial", 2), (mixed, "mixed" if pool else "host", 2)):
+        s_full, m_full = full.train_step(s_full, raw)
+        s_cached, m_cached = t.train_step(s_cached, raw)
+        assert (t.last_tier, t.trunk_runs) == (tier, runs)
+        np.testing.assert_allclose(float(m_cached["loss"]), float(m_full["loss"]), rtol=1e-5)
+    assert len(t.feature_cache) == 3 - (pool > 0)
+
+
 def test_cache_needs_a_frozen_trunk_and_window_ids(batch):
     assert trainer(cache_trunk_features=True).feature_cache is not None
     cfg = GenerationConfig(resnet_units=UNITS, compute_dtype="float32", cache_trunk_features=True)

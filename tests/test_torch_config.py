@@ -76,9 +76,16 @@ def test_generation_config_of_an_experiment():
 
 @pytest.mark.parametrize("parallel", [dict(num_devices=2), dict(fsdp=True), dict(tensor_parallel=2)])
 def test_more_than_one_device_raises(parallel):
+    """The generation task takes more devices and FSDP (tests/test_torch_parallel.py); tensor parallelism still
+    raises, as does every other family at more than one device."""
     cfg = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**parallel))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        pconfig.generation_config(cfg)
+    if "tensor_parallel" in parallel:
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
+            pconfig.generation_config(cfg)
+    else:
+        assert pconfig.generation_config(cfg) == pconfig.generation_config(pconfig.ExperimentConfig())
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
+        pconfig.embed_config(cfg)
     pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(num_devices=1)))
     # optax's Adam is the trainer's choice (tests/test_torch_optim.py): the task's configuration is the same
     optax = pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False))

@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
                     "evaluation.localize", "utils.tb_events", "utils.logger", "cli.main", "cli.tools",
                     "core.tf1_format", "core.tf1_import", "core.tf1_export", "data.stats", "evaluation.distance",
                     "evaluation.knn", "evaluation.retrieve", "evaluation.export", "evaluation.aggregate",
-                    "utils.xlsx", "models.associators", "train.reconstruct", "train.project", "train.joint")]
+                    "utils.xlsx", "models.associators", "train.reconstruct", "train.project", "train.joint",
+                    "parallel.mesh")]
         assert all(m in sys.modules for m in needed), [m for m in needed if m not in sys.modules]
         bad = sorted(
             m for m in sys.modules
@@ -56,7 +57,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 66  # every module of the package, subpackages included
+    assert int(count) >= 68  # every module of the package, subpackages included
     assert bad == "[]"
 
 
