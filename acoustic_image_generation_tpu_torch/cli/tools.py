@@ -17,6 +17,11 @@
     python -m acoustic_image_generation_tpu_torch.cli.tools retrieve ANCHOR_DIR GALLERY_DIR \\
         [--set testing] [--num_classes 10]
     python -m acoustic_image_generation_tpu_torch.cli.tools aggregate FILE... [--out OUT.json|OUT.xlsx]
+    python -m acoustic_image_generation_tpu_torch.cli.tools convert ROOT_RAW_DIR OUT_DIR [--modalities 1 2]
+    python -m acoustic_image_generation_tpu_torch.cli.tools reshard LIST_FILE OUT_DIR
+    python -m acoustic_image_generation_tpu_torch.cli.tools convert-flickr ROOT_RAW_DIR OUT_DIR [--modalities 1 2]
+    python -m acoustic_image_generation_tpu_torch.cli.tools convert-ave ROOT_RAW_DIR OUT_DIR [--modalities 1 2]
+    python -m acoustic_image_generation_tpu_torch.cli.tools convert-collected ROOT_RAW_DIR OUT_DIR [--modalities 1 2]
 
 Counterparts of the JAX package's ``cli/tools.py`` subcommands of the same
 names, with the same files (``intersection_{t}_accuracy.txt``,
@@ -32,7 +37,11 @@ positional arguments. ``generate --artifact DIR`` serves from a port
 artifact (``core/serving.py``; the checkpoint positional is then ignored);
 ``export-serving`` writes one for the generation, classification,
 embedding, projection and joint recipes. ``show`` and ``show-video`` render
-with matplotlib, which they import when they run.
+with matplotlib, which they import when they run. The converters
+(``convert``, ``reshard``, ``convert-flickr``, ``convert-ave``,
+``convert-collected``; ``data/convert.py``) run on the host in numpy and
+print what JAX's print; video frames need Pillow, and ``--modalities 1``
+converts audio without it.
 """
 
 from __future__ import annotations
@@ -406,6 +415,59 @@ def cmd_aggregate(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    """Raw capture directories ``class_*/data_*`` -> shards and list files."""
+    import glob as globmod
+
+    from acoustic_image_generation_tpu_torch.data.convert import convert_capture_dir, write_list_files
+
+    all_shards = []
+    for raw_dir in sorted(globmod.glob(os.path.join(args.root_raw_dir, "class_*", "data_*"))):
+        parts = raw_dir.rstrip("/").split("/")
+        classes = int(parts[-2].split("_")[1])
+        location = int(parts[-1].split("_")[1])
+        shards = convert_capture_dir(raw_dir, args.out_dir, classes=classes, location=location,
+                                     modalities=tuple(args.modalities))
+        all_shards.extend(shards)
+        print(f"{raw_dir}: {len(shards)} shards")
+    print(json.dumps(write_list_files(args.out_dir, all_shards)))
+    return 0
+
+
+def cmd_reshard(args) -> int:
+    """Rewrite a list's GZIP shards uncompressed."""
+    from acoustic_image_generation_tpu_torch.data.convert import reshard
+
+    print(reshard(args.list_file, args.out_dir))
+    return 0
+
+
+def cmd_convert_flickr(args) -> int:
+    """FlickrSoundNet raw and its XML boxes -> shards and a test list."""
+    from acoustic_image_generation_tpu_torch.data.convert import convert_flickr
+
+    print(json.dumps({"testing": convert_flickr(args.root_raw_dir, args.out_dir, modalities=tuple(args.modalities))}))
+    return 0
+
+
+def cmd_convert_ave(args) -> int:
+    """AVE captures with their event windows -> shards and list files."""
+    from acoustic_image_generation_tpu_torch.data.convert import convert_ave, write_list_files
+
+    shards = convert_ave(args.root_raw_dir, args.out_dir, modalities=tuple(args.modalities))
+    print(json.dumps(write_list_files(args.out_dir, shards)))
+    return 0
+
+
+def cmd_convert_collected(args) -> int:
+    """The 2-object collected set -> shards and a test list."""
+    from acoustic_image_generation_tpu_torch.data.convert import convert_collected
+
+    print(json.dumps({"testing": convert_collected(args.root_raw_dir, args.out_dir,
+                                                   modalities=tuple(args.modalities))}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="aig-torch-tools")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -507,6 +569,26 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("files", nargs="+")
     s.add_argument("--out", default=None)
     s.set_defaults(fn=cmd_aggregate)
+
+    s = sub.add_parser("convert", help="raw captures -> TFRecord shards")
+    s.add_argument("root_raw_dir")
+    s.add_argument("out_dir")
+    s.add_argument("--modalities", nargs="*", type=int, default=[1, 2])
+    s.set_defaults(fn=cmd_convert)
+
+    s = sub.add_parser("reshard", help="rewrite shards uncompressed for ingest throughput")
+    s.add_argument("list_file")
+    s.add_argument("out_dir")
+    s.set_defaults(fn=cmd_reshard)
+
+    for name, fn, what in (("convert-flickr", cmd_convert_flickr, "FlickrSoundNet raw (+XML boxes)"),
+                           ("convert-ave", cmd_convert_ave, "AVE captures (event windows)"),
+                           ("convert-collected", cmd_convert_collected, "2-object collected set")):
+        s = sub.add_parser(name, help=f"{what} -> TFRecord shards")
+        s.add_argument("root_raw_dir")
+        s.add_argument("out_dir")
+        s.add_argument("--modalities", nargs="*", type=int, default=[1, 2])
+        s.set_defaults(fn=fn)
     return p
 
 

@@ -1,9 +1,11 @@
-"""Minimal protobuf wire-format codec for ``tf.train.SequenceExample``.
+"""Minimal protobuf wire-format codec for ``tf.train.SequenceExample`` and
+``tf.train.Example``.
 
 Counterpart of ``acoustic_image_generation_tpu/data/proto.py``: exactly the
-subset of proto2 wire encoding the dualcam datasets use:
+subset of proto2 wire encoding the dualcam and TUT datasets use:
 
     SequenceExample { Features context = 1; FeatureLists feature_lists = 2; }
+    Example      { Features features = 1; }
     Features     { map<string, Feature> feature = 1; }
     FeatureLists { map<string, FeatureList> feature_list = 1; }
     FeatureList  { repeated Feature feature = 1; }
@@ -222,3 +224,41 @@ def bytes_feature(value: bytes) -> Feature:
 
 def int64_list_feature(values: list[int]) -> Feature:
     return Feature(int64_list=list(values))
+
+
+@dataclass
+class Example:
+    """Plain ``tf.train.Example``: a bare ``Features`` map, what the TUT
+    shards hold (``data/tut.py``)."""
+
+    features: dict[str, Feature] = field(default_factory=dict)
+
+    def encode(self) -> bytes:
+        out = bytearray()
+        feats = bytearray()
+        for key in self.features:
+            entry = bytearray()
+            _write_len_delimited(entry, 1, key.encode())
+            _write_len_delimited(entry, 2, self.features[key].encode())
+            _write_len_delimited(feats, 1, bytes(entry))
+        _write_len_delimited(out, 1, bytes(feats))
+        return bytes(out)
+
+    @staticmethod
+    def decode(buf: bytes) -> "Example":
+        ex = Example()
+        for field_no, _, value in _iter_fields(buf):
+            if field_no != 1:
+                continue
+            for f2, _, entry in _iter_fields(value):
+                if f2 != 1:
+                    continue
+                key, feat = None, None
+                for f3, _, v3 in _iter_fields(entry):
+                    if f3 == 1:
+                        key = v3.decode()
+                    elif f3 == 2:
+                        feat = Feature.decode(v3)
+                if key is not None and feat is not None:
+                    ex.features[key] = feat
+        return ex

@@ -11,9 +11,14 @@ the magnitudes: callers on CUDA keep ``torch.backends.cuda.matmul.allow_tf32``
 off for this function.
 
 ``ops/stft.py`` holds the CUDA kernel that the embedding path runs on the
-card; ``stft_magnitude`` here is its plain version. ``resize_frames`` is the
-bilinear 99 -> 193 frame resize of the embedding task (``jax.image.resize``
-with ``"bilinear"``: half-pixel centres, no antialiasing when upsampling).
+card; ``stft_magnitude`` here is its plain version. ``stft_magnitude``
+also takes another geometry (``frame_length``, ``frame_step``,
+``fft_length``), as the TUT loader's 440/219/512 (``data/tut.py``); the
+kernel serves the default one only, so another geometry stays this plain
+product on every device, as JAX computes it outside any Pallas kernel.
+``resize_frames`` is the bilinear 99 -> 193 frame resize of the embedding
+task (``jax.image.resize`` with ``"bilinear"``: half-pixel centres, no
+antialiasing when upsampling).
 """
 
 from __future__ import annotations
@@ -39,43 +44,46 @@ def hann_periodic(n: int = FRAME_LENGTH) -> np.ndarray:
 
 
 @functools.cache
-def _dft_bases():
-    """Windowed real-DFT bases (FRAME_LENGTH, NUM_BINS), built in float64
-    and cast to float32: ``cos(k n) w(n)`` and ``-sin(k n) w(n)``."""
-    window = hann_periodic()
-    k = np.arange(FRAME_LENGTH)[:, None] * np.arange(NUM_BINS)[None, :] * (2.0 * np.pi / FFT_LENGTH)
+def _dft_bases(frame_length: int = FRAME_LENGTH, fft_length: int = FFT_LENGTH):
+    """Windowed real-DFT bases (frame_length, fft_length // 2 + 1), built in
+    float64 and cast to float32: ``cos(k n) w(n)`` and ``-sin(k n) w(n)``."""
+    window = hann_periodic(frame_length)
+    k = np.arange(frame_length)[:, None] * np.arange(fft_length // 2 + 1)[None, :] * (2.0 * np.pi / fft_length)
     cos_b = np.cos(k) * window[:, None]
     sin_b = -np.sin(k) * window[:, None]
     return cos_b.astype(np.float32), sin_b.astype(np.float32)
 
 
 @functools.cache
-def device_bases(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_dft_bases`` as f32 tensors, uploaded once per device: private
-    copies, never views of the cached numpy arrays (on the CPU a view would
-    let an in-place op on one poison every later call)."""
-    return tuple(torch.from_numpy(a).to(device, copy=True) for a in _dft_bases())
+def device_bases(device: torch.device, frame_length: int = FRAME_LENGTH,
+                 fft_length: int = FFT_LENGTH) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_dft_bases`` of one geometry as f32 tensors, uploaded once per
+    device: private copies, never views of the cached numpy arrays (on the
+    CPU a view would let an in-place op on one poison every later call)."""
+    return tuple(torch.from_numpy(a).to(device, copy=True) for a in _dft_bases(frame_length, fft_length))
 
 
-def stft_magnitude(wav: torch.Tensor) -> torch.Tensor:
-    """|STFT| of (..., num_samples) audio -> (..., frames, 257) float32;
-    (..., 99, 257) over 12288 samples."""
-    frames = wav.to(torch.float32).unfold(-1, FRAME_LENGTH, FRAME_STEP)
-    cos_b, sin_b = device_bases(wav.device)
+def stft_magnitude(wav: torch.Tensor, *, frame_length: int = FRAME_LENGTH, frame_step: int = FRAME_STEP,
+                   fft_length: int = FFT_LENGTH) -> torch.Tensor:
+    """|STFT| of (..., num_samples) audio -> (..., frames, fft_length // 2 +
+    1) float32; (..., 99, 257) over 12288 samples at the default geometry."""
+    frames = wav.to(torch.float32).unfold(-1, frame_length, frame_step)
+    cos_b, sin_b = device_bases(wav.device, frame_length, fft_length)
     re = frames @ cos_b
     im = frames @ sin_b
     return torch.sqrt(re * re + im * im)
 
 
-def stft_magnitude_numpy_oracle(wav: np.ndarray) -> np.ndarray:
+def stft_magnitude_numpy_oracle(wav: np.ndarray, *, frame_length: int = FRAME_LENGTH, frame_step: int = FRAME_STEP,
+                                fft_length: int = FFT_LENGTH) -> np.ndarray:
     """Host oracle mirroring ``tf.signal.stft`` step by step (float64 FFT,
     float32 out)."""
-    num_frames = 1 + (wav.shape[-1] - FRAME_LENGTH) // FRAME_STEP
-    window = hann_periodic()
-    out = np.empty((*wav.shape[:-1], num_frames, NUM_BINS), np.float32)
+    num_frames = 1 + (wav.shape[-1] - frame_length) // frame_step
+    window = hann_periodic(frame_length)
+    out = np.empty((*wav.shape[:-1], num_frames, fft_length // 2 + 1), np.float32)
     for f in range(num_frames):
-        seg = wav[..., f * FRAME_STEP: f * FRAME_STEP + FRAME_LENGTH] * window
-        out[..., f, :] = np.abs(np.fft.rfft(seg, FFT_LENGTH, axis=-1))
+        seg = wav[..., f * frame_step: f * frame_step + frame_length] * window
+        out[..., f, :] = np.abs(np.fft.rfft(seg, fft_length, axis=-1))
     return out
 
 

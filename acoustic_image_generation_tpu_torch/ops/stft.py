@@ -46,13 +46,22 @@ def _entry():
     return fn
 
 
-def stft(wav: torch.Tensor) -> torch.Tensor:
+def stft(wav: torch.Tensor, *, frame_length: int = spec.FRAME_LENGTH, frame_step: int = spec.FRAME_STEP,
+         fft_length: int = spec.FFT_LENGTH) -> torch.Tensor:
     """(..., 12288) float32 audio -> (..., 99, 257) float32 |STFT|, the
     246/122/512 geometry of ``dsp.spectrogram``.
 
     On the CPU: the plain version. On CUDA: one launch of the kernel,
-    counted in ``stft.launches``. Raises ``ValueError`` for another device,
-    another dtype or length, or a non-contiguous or unaligned input."""
+    counted in ``stft.launches``. Raises ``ValueError`` for another
+    geometry, another device, another dtype or length, or a non-contiguous
+    or unaligned input."""
+    geometry = (frame_length, frame_step, fft_length)
+    if geometry != (spec.FRAME_LENGTH, spec.FRAME_STEP, spec.FFT_LENGTH):
+        raise ValueError(
+            f"stft serves the {spec.FRAME_LENGTH}/{spec.FRAME_STEP}/{spec.FFT_LENGTH} geometry only, got "
+            f"{frame_length}/{frame_step}/{fft_length}: the kernel's FFT plan and tables are built for one "
+            "512-point transform of 246-sample frames; call dsp.spectrogram.stft_magnitude with the geometry "
+            "(a plain product on any device, as JAX computes it outside Pallas)")
     if wav.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stft runs on cpu or cuda, got {wav.device}")
     if wav.dtype != torch.float32:

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --task-families
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --convert
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -22,7 +23,7 @@ the ``sosfilt`` check), ``--embed-workflow`` phase 13 alone,
 ``--task-families`` phase 14 alone (with the ``conv_chain`` checks at
 UNetEnergy's chains), ``--serving`` phase 15 alone (on its own shards and
 a checkpoint of random weights), ``--parallel`` phase 16 alone (on its own
-shards); none prints a result line. Phases, each fatal on
+shards), ``--convert`` phase 17 alone; none prints a result line. Phases, each fatal on
 failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
@@ -206,12 +207,24 @@ failure:
    host-sharded loader, its fill steps against the uncached steps on the
    same rows, the trunk runs a rank an epoch; with two or more cards, DDP
    and FSDP over NCCL on up to four and ``cli.main --num_devices``;
-17. print the card's name and power limit, one ``{"kernels": [...]}`` line
+17. raw captures (2 classes x 2 captures x 3 s of 12288 Hz wav, ``.dc``
+   files; with Pillow BMP frames and small FlickrSoundNet, AVE and
+   collected layouts) through the port's five converter tools in a
+   subprocess that loads no CUDA code, the resharded audio read back by the
+   C++ decoder bit-equal to the wavs (without Pillow: the video refusal
+   naming it, ``pil: absent``), one epoch of DualCamNet on the tiled MFCC
+   map from ``cli.main`` over the converted training list (one ``mfcc``
+   launch a step and validation batch), the TUT loader and its 440/219/512
+   spectrogram on the card against the CPU, then in-process steps timed by
+   ``utils.profiling.StepTimer``, two traced by ``profiling.trace`` and read
+   by ``op_stats`` (the ``mfcc`` kernel among the device ops), and
+   ``device_memory_stats``' peak;
+18. print the card's name and power limit, one ``{"kernels": [...]}`` line
    (each kernel's launches also over phase 11's passes, ``workflow_launches``,
    over phase 13's, ``embed_workflow_launches``, over phase 14's,
-   ``task_families_launches``, over phase 15's, ``serving_launches``, and
-   over rank 0's runs of phase 16, ``parallel_launches``), and last
-   ``{"ok": true, "device": {...}}``.
+   ``task_families_launches``, over phase 15's, ``serving_launches``, over
+   rank 0's runs of phase 16, ``parallel_launches``, and over phase 17's
+   steps, ``convert_launches``), and last ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 (set in ``main``), so "f32" means IEEE f32 on both sides.
@@ -4406,6 +4419,326 @@ def parallel_phase(lists: dict, root: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+# Raw captures through the port's converters (data/convert.py, cli/tools.py), the TUT loader (data/tut.py)
+# and profiling on torch.profiler (utils/profiling.py)
+
+CONVERT_RAW = dict(classes=2, captures=2, seconds=3)  # class_X/data_YYY captures, each 3 s of 12288 Hz audio
+CONVERT_CLIPS = 3  # --batch_size: the training list's 2 captures x 3 s are 2 steps, validation's 3 s one batch
+CONVERT_STEPS = 5  # in-process steps after the command line's epoch, timed by StepTimer after the first
+CONVERT_TRACED = 2  # then steps under profiling.trace
+TUT_RECORDS = 4  # 10 s records at 22050 Hz
+
+
+def write_raw(raw: Path, pil: bool) -> dict:
+    """The raw layouts the five converters read, written with numpy and
+    scipy: 128-mic ``.dc`` files and ``class_X/data_YYY`` captures (a 12288
+    Hz ``audio/output_audio2.wav`` of a class tone in noise,
+    ``video_time.txt``), and with Pillow the captures' BMP frames and small
+    FlickrSoundNet, AVE and collected layouts. Returns {name: directory}."""
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(SEED + 170)
+    rate, secs = 12288, CONVERT_RAW["seconds"]
+    frame = lambda h, w: rng.integers(0, 255, (h, w, 3), np.uint8)
+    for c in range(CONVERT_RAW["classes"]):
+        for d in range(CONVERT_RAW["captures"]):
+            cap = raw / "captures" / f"class_{c}" / f"data_{d:03d}"
+            (cap / "audio").mkdir(parents=True)
+            (cap / "video").mkdir()
+            t = np.arange(secs * rate)
+            wav = 6000 * np.sin(2 * np.pi * (220 + 440 * c) * t / rate) + rng.normal(0, 800, t.size)
+            wavfile.write(cap / "audio" / "output_audio2.wav", rate, wav.astype(np.int16))
+            (cap / "video_time.txt").write_text(f"video seconds: {secs}")
+            if pil:
+                from PIL import Image
+
+                for i in range(12 * secs):
+                    Image.fromarray(frame(240, 320)).save(cap / "video" / f"I_{i + 1:06d}.bmp")
+    dc = raw / "dc" / "audio"
+    dc.mkdir(parents=True)
+    for h in range(3):
+        rng.integers(-(2**20), 2**20, (128, 1024)).astype(np.int32).flatten(order="F").tofile(dc / f"A_{h + 1:06d}.dc")
+
+    dirs = {"captures": raw / "captures", "dc": raw / "dc"}
+    if not pil:
+        return dirs
+    from PIL import Image
+
+    def short_wav(path, fs):
+        wavfile.write(path, fs, (10000 * np.sin(2 * np.pi * 440 * np.arange(int(1.5 * fs)) / fs)).astype(np.int16))
+
+    flickr = raw / "flickr"
+    data, ann = flickr / "Dataset" / "Data" / "0", flickr / "Dataset" / "Annotations"
+    data.mkdir(parents=True)
+    ann.mkdir(parents=True)
+    for i in (3, 7):
+        Image.fromarray(frame(256, 256)).save(data / f"{i}.jpg")
+        short_wav(data / f"{i}.wav", 22050)
+        root = ET.Element("annotation")
+        ET.SubElement(root, "file_name").text = f"{i}.jpg"
+        bb = ET.SubElement(ET.SubElement(root, "person"), "bbox")
+        for tag, v in (("type", "object"), ("xmin", 10), ("ymin", 20), ("xmax", 120), ("ymax", 200)):
+            ET.SubElement(bb, tag).text = str(v)
+        ET.ElementTree(root).write(ann / f"{i}.xml")
+    (flickr / "test_list.txt").write_text("3.jpg\n7.jpg\n")
+    ave = raw / "ave" / "class_3" / "data_002"
+    shutil.copytree(raw / "captures" / "class_0" / "data_000", ave)
+    (ave / "seconds.txt").write_text("1:1\n")
+    collected = raw / "collected"
+    collected.mkdir()
+    for i in (14, 20):
+        Image.fromarray(frame(150, 200)).save(collected / f"{i}.png")
+        short_wav(collected / f"{i}.wav", 22050)
+    (collected / "test_list.txt").write_text("14.png\n20.png\n")
+    return dict(dirs, flickr=flickr, ave=raw / "ave", collected=collected)
+
+
+# the tools, one process: each command's argv, its printed lines, and whether the process loaded CUDA code
+TOOLS_DRIVER = """
+import json, sys
+import torch
+from acoustic_image_generation_tpu_torch.cli import tools
+for argv in json.loads(sys.argv[1]):
+    print("$ tools " + " ".join(argv), flush=True)
+    if tools.main(argv) != 0:
+        sys.exit(f"tools {argv[0]} failed")
+ops = sorted(m for m in sys.modules if m.startswith("acoustic_image_generation_tpu_torch.ops"))
+print(json.dumps({"ops_modules": ops, "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def run_tools(dirs: dict, out: Path, pil: bool) -> tuple[dict, dict, float]:
+    """``tools convert``, ``reshard`` (every split) and, where there is the
+    layout, ``convert-flickr``, ``convert-ave`` and ``convert-collected`` in
+    one subprocess. Returns the lists {split: path} of ``convert``, those
+    of ``reshard`` and the process's seconds."""
+    mods = ["1", "2"] if pil else ["1"]
+    gz = out / "gz"
+    cmds = [["convert", str(dirs["captures"]), str(gz), "--modalities", *mods]]
+    cmds += [["reshard", str(gz / "lists" / f"{s}.txt"), str(out / "flat")]
+             for s in ("training", "validation", "testing")]
+    for name in ("flickr", "ave", "collected"):
+        if name in dirs:
+            cmds.append([f"convert-{name}", str(dirs[name]), str(out / name), "--modalities", *mods])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TOOLS_DRIVER, json.dumps(cmds)], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the converter tools failed: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"  {line[:200]}")
+    tail = json.loads(lines[-1])
+    if tail["ops_modules"] or tail["cuda_initialized"]:
+        raise AssertionError(f"the converter process loaded CUDA code: {tail}")
+    converted = json.loads(lines[lines.index("$ tools " + " ".join(cmds[1])) - 1])
+    flat = {s: str(out / "flat" / f"{s}.txt") for s in ("training", "validation", "testing")}
+    return converted, flat, secs
+
+
+def check_converted_audio(flat: dict, raw: Path) -> int:
+    """Every second's ``audio/data`` of the resharded lists, read back by
+    the loader's C++ decoder, against the wav's samples: bit for bit.
+    Returns the seconds checked."""
+    from scipy.io import wavfile
+
+    from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader
+
+    checked = 0
+    for split, path in flat.items():
+        loader = AcousticImageDataLoader(path, "testing", 1, modalities=(1,), use_native=True, shuffle=False)
+        for batch in loader.batches(0):
+            shard = Path(loader.plan.windows[int(batch.window_ids[0])][0])
+            second = int(shard.stem.split("_")[1]) - 1
+            _, wav = wavfile.read(raw / "captures" / shard.parent.parent.name / shard.parent.name / "audio"
+                                  / "output_audio2.wav")
+            want = wav[second * 12288:(second + 1) * 12288].astype(np.int32).reshape(12, 1024)
+            if batch.audio.shape != (1, 12, 1024) or not np.array_equal(batch.audio[0], want):
+                raise AssertionError(f"{shard}: the decoded audio is not the wav's samples")
+            if (batch.action[0], batch.location[0]) != (int(shard.parent.parent.name[6:]),
+                                                        int(shard.parent.name[5:])):
+                raise AssertionError(f"{shard}: class or location is not the capture's")
+            checked += 1
+    want = CONVERT_RAW["classes"] * CONVERT_RAW["captures"] * CONVERT_RAW["seconds"]
+    if checked != want:
+        raise AssertionError(f"read back {checked} seconds of {want}")
+    return checked
+
+
+def check_video_or_refusal(dirs: dict, converted: dict, pil: bool, root: Path) -> None:
+    """With Pillow, a converted second's first frame against
+    ``prepare_video_frame`` of its BMP, and the dataset converters' extras
+    (boxes, event, classnumber) decoded; without it, the video conversion's
+    ``ImportError`` naming Pillow."""
+    from acoustic_image_generation_tpu_torch.data import convert, schema, tfrecord
+
+    cap = dirs["captures"] / "class_0" / "data_000"
+    if not pil:
+        try:
+            convert.convert_capture_dir(str(cap), str(root / "refused"), classes=0, location=0)
+        except ImportError as e:
+            log(f"pil: absent; the video conversion refuses: {e}")
+            if "Pillow" not in str(e) or "--modalities 1" not in str(e):
+                raise AssertionError(f"the refusal does not name Pillow and the audio-only flag: {e}")
+            return
+        raise AssertionError("video converted without Pillow")
+    from PIL import Image
+
+    log("pil: present")
+    first = open(converted["training"]).readline().strip()
+    rec = schema.decode_record(tfrecord.read_records(first)[0], include_acoustic=False)
+    sec = int(Path(first).stem.split("_")[1]) - 1
+    raw_dir = dirs["captures"] / Path(first).parent.parent.name / Path(first).parent.name
+    want = convert.prepare_video_frame(np.asarray(Image.open(raw_dir / "video" / f"I_{12 * sec + 1:06d}.bmp")))
+    if rec.video.shape != (12, 224, 298, 3) or not np.array_equal(rec.video[0], want):
+        raise AssertionError(f"{first}: the first frame is not the BMP's prepared frame")
+    seen = {}
+    for name, key in (("flickr", "xmin"), ("ave", "event"), ("collected", "classnumber")):
+        out = root / "out" / name
+        shards = sorted(str(p) for p in out.rglob("*.tfrecord")) if name == "ave" else \
+            (out / "testing.txt").read_text().split()
+        seen[name] = [schema.decode_record(tfrecord.read_records(p)[0], include_acoustic=False).extras[key]
+                      for p in shards]
+    log(f"converted extras: flickr xmin {[int(v[0, 0]) for v in seen['flickr']]}, ave events {seen['ave']}, "
+        f"collected classnumbers {seen['collected']}")
+    if ([int(v[0, 0]) for v in seen["flickr"]] != [round(10 * 298 / 256)] * 2 or seen["ave"] != [0, 1, 0]
+            or seen["collected"] != [1, 0]):
+        raise AssertionError("the dataset converters' extras are not the raw annotations'")
+
+
+def check_tut(root: Path) -> None:
+    """TUT_RECORDS records through ``TUTDataLoader`` (training and
+    inference batches), and the TUT-geometry spectrogram of a batch on the
+    card against the CPU, within STFT_TOL of the peak; the stft kernel's
+    wrapper refuses that geometry."""
+    from acoustic_image_generation_tpu_torch.data import tfrecord, tut
+    from acoustic_image_generation_tpu_torch.dsp.spectrogram import stft_magnitude
+    from acoustic_image_generation_tpu_torch.ops import stft as st
+
+    rng = np.random.default_rng(SEED + 171)
+    (root / "tut").mkdir()
+    records = [tut.encode_tut_record(rng.standard_normal(tut.MIN_LENGTH * tut.SAMPLE_RATE).astype(np.float32), i)
+               for i in range(TUT_RECORDS)]
+    tfrecord.write_records(str(root / "tut" / "tut.tfrecord"), records)
+    shapes = {}
+    for mode in ("training", "inference"):
+        loader = tut.TUTDataLoader(str(root / "tut"), mode, 4, seed=SEED)
+        batches = list(loader.batches(0))
+        shapes[mode] = (len(batches), batches[0][0].shape)
+        if len(batches) != loader.total_batches or batches[0][0].shape != (4, loader.segment):
+            raise AssertionError(f"TUT {mode}: {shapes[mode]}")
+    audio = torch.from_numpy(batches[0][0] * 3000)
+    t0 = time.perf_counter()
+    got = stft_magnitude(audio.cuda(), **tut.spectrogram_params())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = stft_magnitude(audio, **tut.spectrogram_params())
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    log(f"TUT ({card()}): batches {shapes}; spectrogram {tuple(got.shape)} on the card in {ms:.2f} ms (first "
+        f"call), {err:.2e} of the peak from the CPU's (tol {STFT_TOL:.0e})")
+    if got.shape != (4, 200, 257) or not err <= STFT_TOL:
+        raise AssertionError("the TUT spectrogram on the card differs from the CPU's")
+    try:
+        st.stft(audio[:, :12288].contiguous().cuda(), **tut.spectrogram_params())
+    except ValueError:
+        return
+    raise AssertionError("the stft kernel's wrapper took the TUT geometry")
+
+
+def convert_phase(counters: dict, root: Path) -> dict:
+    """Phase 17: raw captures -> shards through the port's five converter
+    tools in a subprocess, the audio read back bit for bit, one epoch of
+    DualCamNet on the tiled MFCC map from the command line over the
+    converted training list (mfcc launches counted), the TUT loader and its
+    spectrogram, then CONVERT_STEPS in-process steps timed by
+    ``profiling.StepTimer``, two of them traced by ``profiling.trace`` and
+    read by ``op_stats``, and ``device_memory_stats``' peak. Returns the
+    launch counts of the phase's steps."""
+    import importlib.util
+
+    from acoustic_image_generation_tpu_torch.cli import main as cli
+    from acoustic_image_generation_tpu_torch.train.trainer import Trainer, as_raw
+    from acoustic_image_generation_tpu_torch.utils import profiling
+
+    pil = importlib.util.find_spec("PIL") is not None
+    t0 = time.perf_counter()
+    dirs = write_raw(root / "raw", pil)
+    wrote = time.perf_counter() - t0
+    converted, flat, tool_s = run_tools(dirs, root / "out", pil)
+    t0 = time.perf_counter()
+    seconds = check_converted_audio(flat, root / "raw")
+    log(f"convert ({card()}): raw data written in {wrote:.2f} s; the tools' process {tool_s:.2f} s; {seconds} "
+        f"seconds of audio read back by the C++ decoder in {time.perf_counter() - t0:.2f} s, bit-equal to the wavs")
+    check_video_or_refusal(dirs, converted, pil, root)
+
+    total = dict.fromkeys(counters, 0)
+    flags = ["--model", "DualCamNet", "--mfcc", "1", "--mfccmap", "1", "--num_devices", "1", "--batch_size",
+             str(CONVERT_CLIPS), "--num_epochs", "1", "--seed", str(SEED), "--train_file", flat["training"],
+             "--valid_file", flat["validation"], "--test_file", flat["testing"], "--checkpoint_dir",
+             str(root / "runs"), "--exp_name", "converted", "--device", "cuda"]
+    with counted(counters, "convert: DualCamNet on the tiled MFCC map, one epoch", need=("mfcc",)) as c:
+        cli.main(["--mode", "train", *flags])
+    total = {k: total[k] + v for k, v in c.launches.items()}
+    run_dir = root / "runs" / "converted"
+    record = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    missing = [n for n in ("configuration.txt", "model.txt", "metrics.jsonl", "epoch_0.ckpt")
+               if not (run_dir / n).exists()]
+    config = cli.config_from_args(cli.build_parser().parse_args(["--mode", "train", *flags]))
+    valid_batches = len(list(cli.make_loader(config, "validation").batches(0)))
+    log(f"convert train ({card()}): {record['steps']} steps in {record['seconds']:.3f} s, "
+        f"{record['clips_per_sec']:.1f} clips/s, loss {record['train']['loss']:.6g}, valid accuracy "
+        f"{record['valid']['accuracy']:.4f}; mfcc launches {c.launches['mfcc']} (steps {record['steps']} + "
+        f"validation batches {valid_batches})")
+    if missing or not np.isfinite(record["train"]["loss"]) or record["steps"] != 2:
+        raise AssertionError(f"convert train: missing files {missing} or record {record}")
+    if c.launches["mfcc"] != record["steps"] + valid_batches:
+        raise AssertionError("convert train: not one mfcc launch a step and a validation batch")
+    check_tut(root)
+
+    task = cli.select_task(config, "cuda")
+    trainer = Trainer(task, config)
+    state = trainer.init_state()
+    raws = [as_raw(b) for b in cli.make_loader(config, "training").batches(0)]
+    timer = profiling.StepTimer(clips_per_step=CONVERT_CLIPS, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    steps = CONVERT_STEPS + CONVERT_TRACED
+    with counted(counters, f"convert: {steps} in-process steps", need=("mfcc",)) as c:
+        for i in range(CONVERT_STEPS):
+            state, metrics = trainer.train_step(state, raws[i % len(raws)])
+            torch.cuda.synchronize()  # the timer reads the host's clock
+            timer.step()
+        with profiling.trace(str(root / "trace")):
+            for i in range(CONVERT_TRACED):
+                state, metrics = trainer.train_step(state, raws[i % len(raws)])
+    total = {k: total[k] + v for k, v in c.launches.items()}
+    if c.launches["mfcc"] != steps or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"convert steps: mfcc launches {c.launches['mfcc']}, loss {float(metrics['loss'])}")
+    stats = profiling.op_stats(str(root / "trace"), steps=CONVERT_TRACED, top=10)
+    every = profiling.op_stats(str(root / "trace"), steps=CONVERT_TRACED, top=10**6)["top_ops"]
+    log(f"op_stats of {CONVERT_TRACED} traced steps ({card()}): {stats['total_ms']} ms a step on the device lane; "
+        + ", ".join(f"{c['category']} {c['ms']} ms ({c['pct']}%, {c['gb_accessed']} GB, {c['gbps']} GB/s)"
+                    for c in stats["by_category"]))
+    for op in stats["top_ops"]:
+        log(f"  {op['ms']:8.3f} ms {op['gb_accessed']:6.3f} GB  {op['op'][:100]}")
+    mfcc_ops = [op for op in every if "mfcc_kernel" in op["op"]]
+    if not mfcc_ops or stats["by_category"][0]["category"] not in profiling.DEVICE_CATEGORIES:
+        raise AssertionError("the trace read no device lane, or no mfcc kernel in it")
+    mem = profiling.device_memory_stats()
+    peak = mem[0]["allocated_bytes.all.peak"]
+    log(f"convert steps ({card()}): StepTimer {timer.clips_per_sec:.1f} clips/s over {timer.steps_timed} steps "
+        f"({timer.seconds * 1e3:.1f} ms, a synchronize before each read); mfcc kernel {mfcc_ops[0]['ms']:.4f} ms a "
+        f"step on the device; device_memory_stats: {len(mem)} device(s), peak {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    if len(mem) != torch.cuda.device_count() or peak <= 0 or not timer.clips_per_sec > 0:
+        raise AssertionError("device_memory_stats or StepTimer read nothing")
+    return total
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -4451,9 +4784,10 @@ def phase_only(which: str) -> int:
     (phase 12, after the ``sosfilt`` check), ``--embed-workflow`` (phase
     13), ``--task-families`` (phase 14, with the ``conv_chain`` checks at
     UNetEnergy's chains), ``--serving`` (phase 15, its CLI part on a
-    checkpoint of random weights) or ``--parallel`` (phase 16): build the
-    kernels of that path and run the phase alone on its own shards. Prints
-    no result line."""
+    checkpoint of random weights), ``--parallel`` (phase 16) or
+    ``--convert`` (phase 17, on the raw data it writes): build the kernels
+    of that path and run the phase alone on its own shards. Prints no
+    result line."""
     from acoustic_image_generation_tpu_torch.ops import build
     from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
@@ -4467,7 +4801,8 @@ def phase_only(which: str) -> int:
     log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
     names = {"classify": ("mfcc", "conv_chain", "sosfilt"), "embed_workflow": ("mfcc", "conv_chain", "stft"),
              "task_families": ("conv_chain", "stft"),
-             "serving": ("mfcc", "conv_chain", "stft")}.get(which, ("mfcc", "conv_chain", "qgemm_s8"))
+             "serving": ("mfcc", "conv_chain", "stft"), "convert": ("mfcc",)}.get(
+                 which, ("mfcc", "conv_chain", "qgemm_s8"))
     for name, (secs, text) in build.build(names).items():
         log(f"build {name}: {secs:.2f} s")
         for fn, regs in re.findall(r"entry function '(\w+)'.*?(Used \d+ registers[^\n]*)", text, re.S):
@@ -4479,9 +4814,11 @@ def phase_only(which: str) -> int:
     if which == "parallel":
         build.build(("matmul_stats",))  # built here, before any rank starts
     with scratch_dir() as root:
-        lists = write_shards(root)
+        lists = write_shards(root) if which != "convert" else None
         t0 = time.perf_counter()
-        if which == "cached":
+        if which == "convert":
+            log(json.dumps({"convert_launches": convert_phase(counters, root)}))
+        elif which == "cached":
             cached_training(counters, qg, lists, root)
         elif which == "workflow":
             workflow(counters, lists, root)
@@ -4525,6 +4862,9 @@ def main() -> int:
                       help="only run phase 14, the reconstruction, projection and joint task families")
     only.add_argument("--parallel", action="store_const", const="parallel", dest="only",
                       help="only run phase 16: the generation task on ranks (DDP, FSDP, int8, cached)")
+    only.add_argument("--convert", action="store_const", const="convert", dest="only",
+                      help="only run phase 17: raw captures through the converter tools, DualCamNet on the "
+                           "converted shards, the TUT loader and profiling")
     only.add_argument("--serving", action="store_const", const="serving", dest="only",
                       help="only run phase 15: serving artifacts, HTTP, the artifact CLI, the box sweep, the "
                            "render step and optax's Adam")
@@ -4536,7 +4876,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving", "parallel"):
+    if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving", "parallel",
+                     "convert"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -4687,6 +5028,10 @@ def main() -> int:
         par = parallel_phase(lists, root)
         torch.cuda.empty_cache()
         log(f"phase parallel: {time.perf_counter() - phase:.1f} s")
+        phase = time.perf_counter()
+        conv = convert_phase(every, root)
+        torch.cuda.empty_cache()
+        log(f"phase convert: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
@@ -4694,14 +5039,15 @@ def main() -> int:
         k["task_families_launches"] = families[k["name"]]
         k["serving_launches"] = served[k["name"]]
         k["parallel_launches"] = par.get(k["name"], 0)
+        k["convert_launches"] = conv[k["name"]]
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's and 15's passes
+    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's, 15's, 16's and 17's passes
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
              "workflow_launches", "embed_workflow_launches", "task_families_launches", "serving_launches",
-             "parallel_launches")
+             "parallel_launches", "convert_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

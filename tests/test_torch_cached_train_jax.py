@@ -32,6 +32,7 @@ from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 LR = 1e-4

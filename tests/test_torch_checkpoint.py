@@ -46,6 +46,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import warmstart
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 LR = 1e-4

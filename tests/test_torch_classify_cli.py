@@ -36,6 +36,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train import classify, warmstart
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 LR = 1e-4
 FLAGS = ["--resnet_units", "1,1,1,1", "--compute_dtype", "float32", "--learning_rate", "1e-4"]

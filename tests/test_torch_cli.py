@@ -30,6 +30,7 @@ from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.joint import JointTask
 from acoustic_image_generation_tpu_torch.train.project import ProjectTask
 from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructTask
+from torch_threads import THREADS, few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,12 +136,13 @@ def run(tmp_path_factory):
              "--exp_name", "cli", "--checkpoint_dir", str(tmp / "ckpt"), "--train_file", small["training"],
              "--valid_file", small["validation"], "--test_file", small["testing"]]
     entry = [sys.executable, "-m", "acoustic_image_generation_tpu_torch.cli.main"]
-    subprocess.run([*entry, *flags, "--mode", "train"], check=True, cwd=ROOT, timeout=600)
+    env = dict(os.environ, OMP_NUM_THREADS=str(THREADS))  # a few torch threads, as in this process
+    subprocess.run([*entry, *flags, "--mode", "train"], check=True, cwd=ROOT, env=env, timeout=600)
     run_dir = tmp / "ckpt" / "cli"
     best = BestTracker.read_best_epoch(str(run_dir))
     ckpt = str(run_dir / f"epoch_{best}.ckpt")
     subprocess.run([*entry, *flags, "--mode", "test", "--restore_checkpoint", ckpt], check=True, cwd=ROOT,
-                   timeout=600)
+                   env=env, timeout=600)
     return dict(flags=flags, run_dir=run_dir, best=best, ckpt=ckpt, tmp=tmp)
 
 

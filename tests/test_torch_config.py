@@ -11,6 +11,7 @@ import pytest
 from acoustic_image_generation_tpu.core import config as jconfig
 from acoustic_image_generation_tpu_torch.core import config as pconfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
+from torch_threads import few_torch_threads  # noqa: F401
 
 SECTIONS = ("DataConfig", "ModelConfig", "OptimConfig", "RunConfig", "ParallelConfig", "ExperimentConfig")
 

@@ -18,6 +18,7 @@ import torch
 
 from acoustic_image_generation_tpu.ops import pallas_conv as pc
 from acoustic_image_generation_tpu_torch.ops import conv_chain as cc
+from torch_threads import few_torch_threads  # noqa: F401
 
 CASES = [
     (2, 9, 12, (12, 16, 16), (True, True)),

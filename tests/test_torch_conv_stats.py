@@ -27,6 +27,7 @@ from acoustic_image_generation_tpu.ops import pallas_conv_stats as jcs
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.models.resnet import ConvBN, ResNet50
 from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
+from torch_threads import few_torch_threads  # noqa: F401
 
 # (M, K, N): M is ragged against the Pallas kernel's 512-row tile
 SHAPES = [(300, 64, 192), (1100, 32, 48)]

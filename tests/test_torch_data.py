@@ -20,6 +20,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, na
 from acoustic_image_generation_tpu_torch.data.schema import decode_record
 from acoustic_image_generation_tpu_torch.data.synthetic import write_flickr_dataset, write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.data.windowing import plan_windows
+from torch_threads import few_torch_threads  # noqa: F401
 
 FIELDS = ("acoustic", "audio", "video", "action", "location", "window_ids")
 
@@ -96,6 +97,19 @@ def test_proto_codec_matches_jax():
         assert back.context["neg"].int64_list == [-1, 2**40, 0]
         assert back.context["f"].float_list == [0.5, -2.25]
         assert back.feature_lists["audio/data"][2].bytes_list == [bytes(range(2, 11))]
+
+
+def test_example_codec_matches_jax():
+    """The plain ``tf.train.Example`` (the TUT shards' records)."""
+    def build(mod):
+        return mod.Example(features={"a": mod.int64_feature(-3), "b": mod.Feature(float_list=[0.5, 2.0]),
+                                     "c": mod.bytes_feature(b"\x00\xff" * 5)})
+
+    payload = build(proto).encode()
+    assert payload == build(jproto).encode()
+    assert proto.Example.decode(payload) == build(proto)
+    back = jproto.Example.decode(payload)
+    assert back.features["a"].int64_list == [-3] and back.features["c"].bytes_list == [b"\x00\xff" * 5]
 
 
 def test_shards_decode_the_same_through_either_package(port_lists, jax_lists):

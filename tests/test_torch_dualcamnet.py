@@ -27,6 +27,7 @@ from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.losses import classify
 from acoustic_image_generation_tpu_torch.models.dualcamnet import DualCamNet, clip_logits
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _flax(num_frames, x, dtype=jnp.float32, num_classes=10, seed=0):

@@ -37,6 +37,7 @@ from acoustic_image_generation_tpu_torch.serving import EmbeddingService
 from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from test_torch_embed_models import perturb
+from torch_threads import few_torch_threads  # noqa: F401
 
 SECONDS = 3
 ACTIONS = np.array([0, 1, 0])  # same and different classes

@@ -29,6 +29,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, st
 from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer, as_raw
+from torch_threads import few_torch_threads  # noqa: F401
 
 MODALITIES = ("acoustic", "audio", "video")
 

@@ -25,6 +25,7 @@ import numpy as np
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from test_torch_embed import draws, jax_batch, jax_cfg, jax_init, port_task, raw_clips
 from test_torch_embed_train import AMP, LR, JaxEmbed, _bn_cancelled, _leaves, _port_grads
+from torch_threads import few_torch_threads  # noqa: F401
 
 LEAF_TOL = dict(acoustic=1e-4, audio=0.12, video=3e-2)
 VAE_TOL = dict(audio=4e-2, video=3e-3)

@@ -31,6 +31,7 @@ from acoustic_image_generation_tpu_torch.models.blocks import ConvConvPool
 from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcoustic
 from acoustic_image_generation_tpu_torch.models.unet_sound import UNetSound
 from acoustic_image_generation_tpu_torch.models.unet_video import UNetVideo
+from torch_threads import few_torch_threads  # noqa: F401
 
 LATENT = 128
 

@@ -46,6 +46,7 @@ from acoustic_image_generation_tpu.train.optim import adam_tf1
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from test_torch_embed import draws, jax_batch, jax_cfg, jax_init, port_task, raw_clips
+from torch_threads import few_torch_threads  # noqa: F401
 
 STEPS = 2
 LR = 1e-4

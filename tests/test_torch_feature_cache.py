@@ -14,6 +14,7 @@ import torch
 
 from acoustic_image_generation_tpu.train import feature_cache as jfc
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
+from torch_threads import few_torch_threads  # noqa: F401
 
 SHAPE = (2, 3, 4)  # a window's features, small: (frames, ...)
 NP_DTYPES = {torch.bfloat16: ml_dtypes.bfloat16, torch.float8_e4m3fn: ml_dtypes.float8_e4m3fn,

@@ -12,14 +12,15 @@ the updates of the four steps: each entry within 2 lr, 99% within lr/4 and
 each tensor within 10% in L2 norm (an entry whose gradient sits at
 rounding-noise level takes a full +-lr Adam step of either sign; read:
 0.23 lr, 0.04 lr and 1.2%, the layer2 conv_1 bias); the trunk bit-frozen. The port against itself (an ordinary resume, a
-mid-epoch resume from the crash checkpoint) is bit for bit.
+mid-epoch resume from the crash checkpoint) is bit for bit
+(``tests/test_torch_fit_resume.py``; the shared pieces are in
+``tests/fit_common.py``).
 """
 
 import json
 
 import jax
 import numpy as np
-import pytest
 
 from acoustic_image_generation_tpu.core import config as jconfig
 from acoustic_image_generation_tpu.data.pipeline import AcousticImageDataLoader as JaxLoader
@@ -28,84 +29,11 @@ from acoustic_image_generation_tpu.train.generation import GenerationTask as Jax
 from acoustic_image_generation_tpu.train.trainer import Trainer as JaxTrainer
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.core import config as pconfig
-from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
-from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
-
-LR = 1e-4
-STEPS_PER_EPOCH = 2
-
-
-@pytest.fixture(scope="module")
-def lists(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_fit")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    out = {}
-    for split, n in (("training", 2), ("validation", 1)):
-        with open(full[split]) as f:
-            files = f.read().split()[:n]
-        out[split] = str(tmp / f"{split}.txt")
-        with open(out[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    return out
-
-
-def _config(mod, tmp, name, epochs=2, **model):
-    return mod.ExperimentConfig(
-        data=mod.DataConfig(batch_size=1),
-        model=mod.ModelConfig(resnet_units=(1, 1, 1, 1), **model),
-        optim=mod.OptimConfig(learning_rate=LR, num_epochs=epochs),
-        run=mod.RunConfig(checkpoint_dir=str(tmp), exp_name=name, seed=0),
-        parallel=mod.ParallelConfig(compute_dtype="float32"),
-    )
-
-
-def _port(tmp, name, epochs=2, weights_seed=0, **model):
-    cfg = _config(pconfig, tmp, name, epochs, **model)
-    task = GenerationTask(pconfig.generation_config(cfg), device="cpu").init_params(weights_seed)
-    return Trainer(task, cfg)
-
-
-def _loaders(lists):
-    return (AcousticImageDataLoader(lists["training"], "training", 1),
-            AcousticImageDataLoader(lists["validation"], "validation", 1))
-
-
-def _records(trainer):
-    with open(f"{trainer.run_dir}/metrics.jsonl") as f:
-        return [json.loads(line) for line in f]
-
-
-def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict) and v:
-            yield from _leaves(v, prefix + (k,))
-        else:
-            yield "/".join(prefix + (k,)), v
-
-
-def _assert_same_state(a, b):
-    """Two port states equal to the bit: step, parameters, statistics and
-    Adam slots (their checkpoint state dicts)."""
-    want = dict(_leaves(ckpt.state_dict(b)))
-    got = dict(_leaves(ckpt.state_dict(a)))
-    assert got.keys() == want.keys()
-    for key, value in got.items():
-        if isinstance(value, dict):
-            assert value == want[key] == {}, key
-        else:
-            np.testing.assert_array_equal(value, want[key], err_msg=key)
-
-
-@pytest.fixture(scope="module")
-def uninterrupted(lists, tmp_path_factory):
-    """The VAE run every resume is held against: two epochs from seed-0
-    weights."""
-    trainer = _port(tmp_path_factory.mktemp("whole"), "whole")
-    state = trainer.fit(*_loaders(lists))
-    return trainer, state
+from fit_common import LR, STEPS_PER_EPOCH, _config, _leaves, _loaders, _port, _records, lists  # noqa: F401
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def test_fit_matches_jax(lists, tmp_path):
@@ -150,74 +78,6 @@ def test_fit_matches_jax(lists, tmp_path):
     restored.restore(f"{jtr.run_dir}/epoch_1.ckpt", restored.init_state())
     for key, value in _leaves(bridge.to_flax(restored.task)[0]):
         np.testing.assert_array_equal(value, np.asarray(after[key]), err_msg=key)
-
-
-def test_ordinary_resume_is_the_uninterrupted_run(lists, uninterrupted, tmp_path):
-    """The uninterrupted run's epoch-0 snapshot, restored into a fresh
-    trainer and trained one more epoch, is that run's final state."""
-    resumed = _port(tmp_path, "resumed", epochs=1, weights_seed=9)  # its own weights are overwritten
-    state = resumed.restore(f"{uninterrupted[0].run_dir}/epoch_0.ckpt", resumed.init_state())
-    assert state.step == STEPS_PER_EPOCH
-    state = resumed.fit(*_loaders(lists), state=state)
-    assert [r["epoch"] for r in _records(resumed)] == [1]  # numbering goes on from the step
-    _assert_same_state(state, uninterrupted[1])
-    assert _records(resumed)[0]["valid"] == _records(uninterrupted[0])[1]["valid"]
-
-
-class FaultyLoader:
-    """A loader whose ``epoch`` raises after ``after`` batches."""
-
-    def __init__(self, loader, epoch: int, after: int):
-        self.loader, self.epoch, self.after = loader, epoch, after
-
-    def __getattr__(self, name):
-        return getattr(self.loader, name)
-
-    def batches(self, epoch: int = 0):
-        for i, batch in enumerate(self.loader.batches(epoch)):
-            if epoch == self.epoch and i == self.after:
-                raise OSError("shard read failed")
-            yield batch
-
-
-def test_crash_checkpoint_and_mid_epoch_resume(lists, uninterrupted, tmp_path, capsys):
-    train, valid = _loaders(lists)
-    crashed = _port(tmp_path, "crashed")
-    with pytest.raises(OSError, match="shard read failed"):
-        crashed.fit(FaultyLoader(train, epoch=1, after=1), valid)
-    path = f"{crashed.run_dir}/epoch_interrupted_1.ckpt"
-    assert ckpt.load_resume_meta(path) == {"epoch": 1, "step_in_epoch": 1}
-    assert "crash checkpoint" in capsys.readouterr().err
-    assert [r["epoch"] for r in _records(crashed)] == [0]
-
-    resumed = _port(tmp_path, "resumed", epochs=1, weights_seed=9)
-    state = resumed.restore(path, resumed.init_state())
-    assert state.step == STEPS_PER_EPOCH + 1
-    state = resumed.fit(train, valid, state=state)
-    assert [(r["epoch"], r["steps"]) for r in _records(resumed)] == [(1, 1)]  # one batch skipped
-    _assert_same_state(state, uninterrupted[1])
-
-
-def test_no_crash_checkpoint_from_a_torn_update(lists, tmp_path, monkeypatch, capsys):
-    """A fault inside the optimizer's in-place update leaves some tensors
-    updated and others not: no checkpoint is written from that state."""
-    trainer = _port(tmp_path, "torn")
-    real_step = TF1Adam.step
-
-    def step_then_fail(self, closure=None):
-        params = self.param_groups[0]["params"]
-        self.param_groups[0]["params"] = params[:3]  # three tensors updated, then the fault
-        try:
-            real_step(self)
-        finally:
-            self.param_groups[0]["params"] = params
-        raise RuntimeError("device fault")
-
-    monkeypatch.setattr(TF1Adam, "step", step_then_fail)
-    with pytest.raises(RuntimeError, match="device fault"):
-        trainer.fit(*_loaders(lists))
-    assert "no crash checkpoint written" in capsys.readouterr().err
-    assert not list((tmp_path / "torn").glob("*.ckpt"))
 
 
 def test_fit_rides_the_feature_cache_and_attaches_the_disk_tier(lists, tmp_path):

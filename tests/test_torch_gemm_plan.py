@@ -17,6 +17,7 @@ import torch
 
 from acoustic_image_generation_tpu_torch.models.resnet import RESNET50_BLOCKS
 from acoustic_image_generation_tpu_torch.ops import conv_stats, gemm_plan, qgemm
+from torch_threads import few_torch_threads  # noqa: F401
 
 SMS = 132  # H100 SXM
 KERNELS = ("matmul_stats", "qgemm_s8")

@@ -27,6 +27,7 @@ import torch
 from acoustic_image_generation_tpu.dsp import iir as jiir
 from acoustic_image_generation_tpu_torch.dsp import iir
 from acoustic_image_generation_tpu_torch.ops import sosfilt
+from torch_threads import few_torch_threads  # noqa: F401
 
 WN = 125 / (0.5 * 12288)
 

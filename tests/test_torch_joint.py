@@ -41,6 +41,7 @@ from task_parity import (
     with_normals,
 )
 from test_torch_embed_models import perturb
+from torch_threads import few_torch_threads  # noqa: F401
 
 MODES = {"default": {}, "fusion": dict(fusion=True), "onlyaudiovideo": dict(onlyaudiovideo=True),
          "moddrop": dict(moddrop=True)}

@@ -18,6 +18,7 @@ from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.models.blocks import ConvConvPool
 from acoustic_image_generation_tpu_torch.ops import tf_compat as ttf
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from torch_threads import few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -28,6 +28,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader
 from acoustic_image_generation_tpu_torch.data.synthetic import write_flickr_dataset
 from acoustic_image_generation_tpu_torch.evaluation.localize_boxes import run_box_iou_sweep
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import torch
 
 from acoustic_image_generation_tpu.losses import metric as jmetric
 from acoustic_image_generation_tpu_torch.losses import metric
+from torch_threads import few_torch_threads  # noqa: F401
 
 B, D = 8, 16
 LABELS = {

@@ -32,6 +32,7 @@ from acoustic_image_generation_tpu_torch.dsp import mel as mel_mod
 from acoustic_image_generation_tpu_torch.ops import mfcc_kernel
 from acoustic_image_generation_tpu_torch.ops.mfcc_kernel import mfcc as mfcc_wrapper
 from fft_model import complex_table, real_split, stockham
+from torch_threads import few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 

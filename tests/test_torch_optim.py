@@ -37,6 +37,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.optim import Adam, TF1Adam
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 LR = 1e-3
 SHAPES = {"a": (37, 129), "b": (3, 3, 12, 16), "c": ()}

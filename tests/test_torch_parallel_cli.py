@@ -32,6 +32,7 @@ from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _records(run_dir):

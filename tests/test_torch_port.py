@@ -18,6 +18,7 @@ from acoustic_image_generation_tpu_torch.serving import EmbeddingService, Genera
 from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask, no_tf32
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +40,7 @@ def test_port_imports_no_jax():
                     "core.tf1_format", "core.tf1_import", "core.tf1_export", "data.stats", "evaluation.distance",
                     "evaluation.knn", "evaluation.retrieve", "evaluation.export", "evaluation.aggregate",
                     "utils.xlsx", "models.associators", "train.reconstruct", "train.project", "train.joint",
-                    "parallel.mesh")]
+                    "parallel.mesh", "data.convert", "data.listing", "data.tut", "utils.profiling")]
         assert all(m in sys.modules for m in needed), [m for m in needed if m not in sys.modules]
         bad = sorted(
             m for m in sys.modules
@@ -57,7 +58,7 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 68  # every module of the package, subpackages included
+    assert int(count) >= 72  # every module of the package, subpackages included
     assert bad == "[]"
 
 

@@ -48,6 +48,7 @@ from task_parity import (
     with_normals,
 )
 from test_torch_embed_models import perturb
+from torch_threads import few_torch_threads  # noqa: F401
 
 WIRINGS = {"video": dict(encoder_type="Video"), "audio": dict(encoder_type="Audio"), "fusion": dict(fusion=True),
            "l2": dict(encoder_type="Video", l2=True)}

@@ -41,6 +41,7 @@ from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTask
 from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig, ReconstructTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 VAES = ("acoustic", "video", "audio")
 

@@ -21,6 +21,7 @@ import torch
 from acoustic_image_generation_tpu.ops.pallas_qgemm import fused_q1x1 as jax_fused_q1x1
 from acoustic_image_generation_tpu.ops.pallas_qgemm import xla_q1x1_reference
 from acoustic_image_generation_tpu_torch.ops import qgemm
+from torch_threads import few_torch_threads  # noqa: F401
 
 A_AMAX, RES_AMAX = 3.7, 2.2
 

@@ -47,6 +47,7 @@ from acoustic_image_generation_tpu_torch.models import quant
 from acoustic_image_generation_tpu_torch.models.resnet import ResNet50
 from acoustic_image_generation_tpu_torch.ops.qconv import conv2d_s8
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from torch_threads import few_torch_threads  # noqa: F401
 
 TINY_BLOCKS = ((64, 1, 1), (128, 1, 2), (256, 1, 2), (512, 1, 1))
 MULTI_BLOCKS = ((64, 2, 1), (128, 2, 2), (256, 1, 2), (512, 1, 1))

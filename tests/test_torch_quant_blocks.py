@@ -11,6 +11,7 @@ one process of its own.
 import pytest
 
 from test_torch_quant import check_calibrate, check_trunk_forward
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def test_calibrate_matches_jax():

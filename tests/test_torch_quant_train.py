@@ -41,6 +41,7 @@ from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 STEPS = 2

@@ -45,6 +45,7 @@ from task_parity import (
     with_normals,
 )
 from test_torch_embed_models import perturb
+from torch_threads import few_torch_threads  # noqa: F401
 
 TYPES = ("Ac", "Energy", "Audio", "Video")
 CLIPS = {"Ac": (2, 2), "Energy": (2, 2), "Audio": (2, 12), "Video": (2, 1)}  # clips, frames

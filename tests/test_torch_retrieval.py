@@ -24,6 +24,7 @@ from acoustic_image_generation_tpu.evaluation import retrieve as jretrieve
 from acoustic_image_generation_tpu.utils import xlsx as jxlsx
 from acoustic_image_generation_tpu_torch.evaluation import aggregate, distance, export, knn, retrieve
 from acoustic_image_generation_tpu_torch.utils import xlsx
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 def _case(seed, n_gallery, n_query, dim, classes):

@@ -23,6 +23,7 @@ from acoustic_image_generation_tpu_torch.core.client import ArtifactClient
 from acoustic_image_generation_tpu_torch.core.server import ArtifactServer, declared_bytes
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcResNet
 from acoustic_image_generation_tpu_torch.serving import GenerationService
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 N = 2

@@ -51,6 +51,7 @@ from acoustic_image_generation_tpu_torch.train.generation import GenerationConfi
 from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTask
 from acoustic_image_generation_tpu_torch.train.project import ProjectConfig, ProjectTask
 from task_parity import rel, with_normals
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 # the keys a port manifest adds to JAX's, or fills in its own way

@@ -37,6 +37,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from task_parity import with_normals
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 

@@ -30,6 +30,7 @@ from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
 from acoustic_image_generation_tpu_torch.ops import build
 from acoustic_image_generation_tpu_torch.ops import stft as stft_mod
 from fft_model import complex_table, real_split, stockham
+from torch_threads import few_torch_threads  # noqa: F401
 
 PEAK_TOL = 1e-5  # max abs error over the peak magnitude
 
@@ -131,6 +132,30 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_and_checks_its_input():
         stft_mod.stft(x[:, :1024].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         stft_mod.stft(torch.stack([x, x], dim=-1)[..., 0])
+
+
+def test_geometry_keywords_default_to_the_kernels_geometry():
+    """``stft_magnitude``'s geometry keywords default to the 246/122/512
+    geometry: the same bits as the bases in closed form. The kernel's
+    wrapper takes that geometry and refuses any other (the TUT loader's
+    440/219/512 among them) before it launches."""
+    x = torch.from_numpy((np.random.default_rng(3).standard_normal((3, 12288)) * 3000).astype(np.float32))
+    got = spec.stft_magnitude(x)
+    assert torch.equal(got, spec.stft_magnitude(x, frame_length=246, frame_step=122, fft_length=512))
+    n = np.arange(246)[:, None] * np.arange(257)[None, :] * (2.0 * np.pi / 512)
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(246) / 246)
+    cos_b = torch.from_numpy((np.cos(n) * window[:, None]).astype(np.float32))
+    sin_b = torch.from_numpy((-np.sin(n) * window[:, None]).astype(np.float32))
+    frames = x.unfold(-1, 246, 122)
+    assert torch.equal(got, torch.sqrt((frames @ cos_b) ** 2 + (frames @ sin_b) ** 2))
+    assert torch.equal(stft_mod.stft(x), got)
+    assert torch.equal(stft_mod.stft(x, frame_length=246, frame_step=122, fft_length=512), got)
+    launches = stft_mod.stft.launches
+    for geometry in (dict(frame_length=440, frame_step=219, fft_length=512), dict(frame_length=246, frame_step=123),
+                     dict(fft_length=1024)):
+        with pytest.raises(ValueError, match="246/122/512 geometry only"):
+            stft_mod.stft(x, **geometry)
+    assert stft_mod.stft.launches == launches
 
 
 GROUP, SPAN = 9, 1224  # csrc/stft.cu: frames a block, floats of a block's sample span

@@ -41,6 +41,7 @@ from acoustic_image_generation_tpu_torch.models.resnet import BatchNorm
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer, step_generator
+from torch_threads import few_torch_threads  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 CLIPS, FRAMES = 1, 2
