@@ -34,13 +34,15 @@ default: ``--normalize_spectrogram 1`` (the embedding task's z-normalized
 spectrograms, with the statistics of ``stats2s`` beside ``--train_file``).
 
 Devices, as JAX's ``--num_devices`` (its one process over N devices): the
-generation task trains and tests on N ranks, one process a device
-(``parallel/mesh.py``), each rank on its rows of every ``--batch_size``
-batch. ``--num_devices N > 1`` starts the N ranks itself (``cuda:0`` to
-``cuda:N-1`` over NCCL, or N CPU ranks over gloo with ``--device cpu``; more
-than the visible GPUs raise); unset, it takes every visible GPU for the
-generation task and one device for the other tasks, which raise when asked
-for more (``ROADMAP.md`` Queue 1, item 8.1, second half). Under ``torchrun``
+generation task, the embedding family (every variant) and the
+reconstruction task (every ``--encoder_type``) train and test on N ranks,
+one process a device (``parallel/mesh.py``), each rank on its rows of
+every ``--batch_size`` batch. ``--num_devices N > 1`` starts the N ranks
+itself (``cuda:0`` to ``cuda:N-1`` over NCCL, or N CPU ranks over gloo with
+``--device cpu``; more than the visible GPUs raise); unset, it takes every
+visible GPU for those tasks, as JAX's ``make_mesh`` takes every device, and
+one device for the other tasks, which raise when asked for more
+(``ROADMAP.md`` Queue 1, item 8.1, second half). Under ``torchrun``
 each process is the rank its environment names. Each rank's loader
 decodes only its rows: a rank is one process, so the host sharding that
 JAX's ``--host_shard 1`` asks of a multi-host run is the port's one layout,
@@ -234,11 +236,15 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-def is_generation(config: ExperimentConfig) -> bool:
-    """Whether the experiment runs ``GenerationTask``, the one task that
-    trains on more than one device."""
-    m = config.model
-    return bool(m.embedding and m.mfcc and not m.project and not m.jointmvae)
+def takes_devices(config: ExperimentConfig) -> bool:
+    """Whether the experiment's task trains on more than one device: its
+    configuration is taken at two (a task whose ``one_device_reason`` is
+    not None raises there)."""
+    try:
+        task_config(dataclasses.replace(config, parallel=ParallelConfig(num_devices=2)))
+    except NotImplementedError:
+        return False
+    return True
 
 
 def task_config(config: ExperimentConfig):
@@ -289,11 +295,11 @@ def make_loader(config: ExperimentConfig, split: str):
 
 
 def num_devices(config: ExperimentConfig, device: str) -> int:
-    """``parallel.num_devices``, or unset: every visible GPU for the
-    generation task on ``cuda``, else one."""
+    """``parallel.num_devices``, or unset: every visible GPU on ``cuda`` for
+    a task that takes more than one device, else one."""
     if config.parallel.num_devices is not None:
         return config.parallel.num_devices
-    if device == "cuda" and is_generation(config) and torch.cuda.is_available():
+    if device == "cuda" and takes_devices(config) and torch.cuda.is_available():
         return torch.cuda.device_count()
     return 1
 

@@ -154,7 +154,7 @@ class RunConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     data_axis: str = "data"
-    num_devices: int | None = None  # None: every visible device for the generation task, else one
+    num_devices: int | None = None  # None: every visible device for the tasks that take more, else one
     compute_dtype: str = "float32"  # or "bfloat16"
     fsdp: bool = False
     tensor_parallel: int = 1
@@ -207,8 +207,8 @@ SECOND_HALF = "ROADMAP.md Queue 1, item 8.1, second half"
 
 def refuse_tensor_parallel(config: ExperimentConfig) -> None:
     if config.parallel.tensor_parallel > 1:
-        raise NotImplementedError(f"tensor_parallel > 1 is not ported: the port splits the generation task's batch "
-                                  f"(num_devices) and shards its weights (fsdp) only ({SECOND_HALF})")
+        raise NotImplementedError(f"tensor_parallel > 1 is not ported: the port splits a task's batch (num_devices) "
+                                  f"and shards its weights (fsdp) only ({SECOND_HALF})")
 
 
 def parallel(config: ExperimentConfig) -> bool:
@@ -279,7 +279,8 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     ``data.datatype`` (13 for music), ``model.num_class`` latents, the
     variant flags, and the spectrogram statistics' directory (``data.
     stats_dir``, else ``stats2s`` beside the training list, as JAX's
-    ``_load_spec_stats``). Raises at more than one device (``one_device``)."""
+    ``_load_spec_stats``). Takes more than one device and FSDP; raises for
+    what ``generation_config`` refuses (``one_device``)."""
     one_device(config, EmbedTask)
     d, m, o = config.data, config.model, config.optim
     stats_dir = d.stats_dir
@@ -304,9 +305,9 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
 
 def one_device(config: ExperimentConfig, task_class) -> None:
     """Raise, with the task's ``one_device_reason``, when a task that trains
-    on one device only is asked for more or for FSDP; and for what
-    ``generation_config`` refuses."""
-    if parallel(config):
+    on one device only (its reason is not None) is asked for more or for
+    FSDP; and for what ``generation_config`` refuses."""
+    if parallel(config) and task_class.one_device_reason is not None:
         raise NotImplementedError(f"{task_class.one_device_reason} ({SECOND_HALF})")
     generation_config(config)
 
@@ -320,8 +321,9 @@ def _common(config: ExperimentConfig, task_class) -> dict:
 
 def reconstruct_config(config: ExperimentConfig) -> ReconstructConfig:
     """The port's ``ReconstructConfig`` of an experiment (``model.
-    encoder_type``; 13 acoustic channels for music). Raises at more than
-    one device (``one_device``)."""
+    encoder_type``; 13 acoustic channels for music). Takes more than one
+    device and FSDP; raises for what ``generation_config`` refuses
+    (``one_device``)."""
     return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config, ReconstructTask))
 
 

@@ -23,6 +23,13 @@ reported metrics and the eval sums (``train/trainer.py``).
   than one rank every loader decodes its rank's rows only.
 - ``all_reduce_sum`` (differentiable: its backward all-reduces the
   gradient, as JAX's transpose of a ``psum`` does) and ``all_reduce_``.
+- ``all_gather_rows`` (differentiable): every rank's rows in rank order, the
+  global batch of a loss term that couples rows (the embedding family's
+  triplet mining and NCA). Every rank then computes the same global term;
+  the backward sums the ranks' gradients and keeps this rank's rows (a
+  reduce-scatter, the transpose of JAX's all-gather), so that DDP's average
+  of the ranks' gradients is the term's gradient, as it is for the BN
+  moments that ``all_reduce_sum`` sums.
 - ``fsdp_axis``: JAX's ``fsdp_sharding`` rule on a flax shape; ``full`` and
   ``copy_full_``: a sharded parameter (an FSDP2 ``DTensor``) gathered whole,
   or set from a whole tensor, with plain collectives.
@@ -206,6 +213,31 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out)
     return out
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        t = t.contiguous()
+        out = t.new_empty((world() * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum over the ranks, cut to this rank's rows: a reduce-scatter, written as an all-reduce (gloo has
+        # no reduce-scatter; the rows are a loss term's latents, kilobytes)
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return shard_rows(g)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t`` (equal counts), in rank order: the global
+    batch, the inverse of ``shard_rows``. Differentiable: the gradient of
+    the gathered rows is summed over the ranks and cut to this rank's rows.
+    The identity with one process."""
+    return t if world() == 1 else _AllGatherRows.apply(t)
 
 
 def global_moments(total: torch.Tensor, total_sq: torch.Tensor, count: int):

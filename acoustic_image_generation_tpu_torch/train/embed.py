@@ -29,6 +29,17 @@ modality's reparameterization. It and the moddrop draws come from the
 step's ``torch.Generator`` (eps first), or are given (the tests hand in
 JAX's). The train-mode forward updates the BN running averages of the audio
 and video VAEs in place (JAX returns them as new ``batch_stats``).
+
+On more than one rank (``parallel/mesh.py``) each rank holds its seconds
+of the global batch, and what couples rows covers the global batch, as in
+JAX's one program over its ``data`` mesh: the audio and video VAEs'
+train-mode BN statistics (``models/layers.py``); the triplet mining,
+``triplet_all`` and NCA, over the latents, labels and scenarios gathered by
+``mesh.all_gather_rows``; ``eps``, which the trainer draws at the global
+shape (``global_noise``) and cuts to the rank's rows, so that the moddrop
+draws after it come from the same generator state on every rank. The
+reconstruction terms and the ``l2`` variant are rank means over equal
+rows, which the trainer averages.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcoustic
 from acoustic_image_generation_tpu_torch.models.unet_sound import UNetSound
 from acoustic_image_generation_tpu_torch.models.unet_video import UNetVideo
 from acoustic_image_generation_tpu_torch.ops.stft import stft
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 AUDIO_WEIGHT_DECAY = 8e-5
@@ -100,10 +112,7 @@ class EmbedTask(nn.Module):
     reads_mfcc = False  # no VAE reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
-    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
-    one_device_reason = ("the embedding family trains on one device only: the audio and video VAEs train BN layers "
-                         "with gradients, and the batch-hard triplet mining, NCA and the moddrop draws cover the "
-                         "global batch")
+    one_device_reason = None  # it trains on more than one rank
 
     def __init__(self, config: EmbedConfig = EmbedConfig(), *, device=None):
         super().__init__()
@@ -125,6 +134,11 @@ class EmbedTask(nn.Module):
         1), drawn from a CPU generator seeded with ``seed``."""
         init_modules(self, seed)
         return self
+
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each): the three
+        VAEs."""
+        return self.acoustic, self.audio, self.video
 
     @staticmethod
     def kernels(module: nn.Module) -> list[torch.Tensor]:
@@ -158,6 +172,11 @@ class EmbedTask(nn.Module):
             raise ValueError("the embedding loss samples the latent noise: pass eps or generator")
         return torch.randn((seconds, self.cfg.latent_dim), generator=generator, device=self.device)
 
+    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor:
+        """The step's ``eps`` for a global batch of ``frames`` frames, as one
+        device draws it."""
+        return self.draw_noise(frames // FRAMES_PER_SECOND, generator)
+
     # ----------------------------------------------------------------- loss
 
     def loss(self, batch: Batch, *, train: bool = True, eps=None, generator=None, moddrop=None, qtrunk=None):
@@ -171,6 +190,11 @@ class EmbedTask(nn.Module):
             raise ValueError("the embedding loss needs the batch's action and location labels")
         inputs, outs = self._forward(batch, train=train)
         return self.objective(inputs, outs, batch, train=train, eps=eps, generator=generator, moddrop=moddrop)
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def objective(self, inputs, outs, batch: Batch, *, train: bool = True, eps=None, generator=None,
                   moddrop=None):
@@ -186,10 +210,11 @@ class EmbedTask(nn.Module):
 
         seconds = ac_out.mean.shape[0]
         eps = self.draw_noise(seconds, generator) if eps is None else eps.to(self.device, torch.float32)
-        sample = lambda mean, std: mean.float() + std.float() * eps
+        # the alignment terms couple rows: their latents, labels and scenarios cover the global batch
+        sample = lambda mean, std: mesh.all_gather_rows(mean.float() + std.float() * eps)
         z_ac = sample(ac_out.mean, ac_out.std)
-        labels = batch.action[::FRAMES_PER_SECOND]
-        scenario = batch.location[::FRAMES_PER_SECOND]
+        labels = mesh.all_gather_rows(batch.action[::FRAMES_PER_SECOND])
+        scenario = mesh.all_gather_rows(batch.location[::FRAMES_PER_SECOND])
 
         metrics = {"mse": mse, "huber": hub, "latent_loss": latent_term}
         if cfg.l2:

@@ -143,6 +143,18 @@ class GenerationTask(nn.Module):
         theirs as a class attribute.)"""
         return CORRESPONDENCE_ONE_DEVICE if self.cfg.correspondence else None
 
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each): ``conv_map``
+        and the generator."""
+        return self.resnet.conv_map, self.generator
+
+    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor | None:
+        """The VAE noise of a global batch of ``frames`` frames, as one device
+        draws it; None for the deterministic AE, which draws nothing."""
+        if self.cfg.ae:
+            return None
+        return torch.randn((frames, self.generator.vae.latent_dim), generator=generator, device=self.device)
+
     def param_labels(self) -> dict[str, str]:
         """"train" or "frozen" for every parameter, as JAX's ``param_labels``:
         the generator and the ResNet's ``conv_map`` (and ``logits``) heads

@@ -20,6 +20,13 @@ whenever its ``latent`` rng exists: ``eps`` (samples, latent) is given, or
 drawn from the step's generator. ``eval_losses`` gives the per-sample MSE:
 per frame for ``Ac``, ``Energy`` and ``Video``, per second for ``Audio``.
 The parameter tree is JAX's ``{"model": ...}``; every parameter trains.
+
+On more than one rank (``parallel/mesh.py``) each rank holds its samples
+of the global batch: the BN models' train-mode statistics cover the
+global batch (``models/layers.py``), and the VAE noise is the global
+batch's draw (``global_noise``, drawn by the trainer), cut to the rank's
+rows, as JAX's one program over its ``data`` mesh draws it. The loss terms
+are rank means over equal rows, which the trainer averages.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 
-from acoustic_image_generation_tpu_torch import resolve_device
+from acoustic_image_generation_tpu_torch import FRAMES_PER_SECOND, resolve_device
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, minmax_frame
 from acoustic_image_generation_tpu_torch.dsp.spectrogram import SAMPLES_PER_SECOND
 from acoustic_image_generation_tpu_torch.losses.recon import huber_tf, kl_diag_gaussian, mse_tf
@@ -64,9 +71,7 @@ class ReconstructTask(nn.Module):
     reads_mfcc = False  # no model reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
-    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
-    one_device_reason = ("the reconstruction task trains on one device only: the audio and video VAEs train BN "
-                         "layers with gradients, and the VAE noise is drawn per rank")
+    one_device_reason = None  # it trains on more than one rank
 
     def __init__(self, config: ReconstructConfig = ReconstructConfig(), *, device=None):
         super().__init__()
@@ -98,6 +103,17 @@ class ReconstructTask(nn.Module):
         init_modules(self, seed)
         return self
 
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each): the VAE."""
+        return (self.model,)
+
+    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor:
+        """The VAE noise of a global batch of ``frames`` frames (a sample a
+        second for ``Audio``, a frame otherwise), as one device's model draws
+        it."""
+        samples = frames // FRAMES_PER_SECOND if self.encoder_type == "Audio" else frames
+        return torch.randn((samples, LATENTS[self.encoder_type]), generator=generator, device=self.device)
+
     def inputs(self, batch: Batch) -> torch.Tensor:
         """The model's input: (N,36,48,C) acoustic frames, (N,36,48,1)
         energy maps, (S,99,257,1) f32 magnitudes or (N,224,298,3) frames."""
@@ -114,6 +130,11 @@ class ReconstructTask(nn.Module):
         if eps is None and generator is None:
             raise ValueError("the reconstruction VAE samples its latent: pass eps or generator")
         return x, self.model(x, eps=eps, generator=generator, train=train)
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def loss(self, batch: Batch, *, train: bool = True, eps=None, generator=None, **unused):
         """Forward (train-mode BN in a train step) and objective, ``(total,

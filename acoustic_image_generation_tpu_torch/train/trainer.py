@@ -67,24 +67,27 @@ Adam on them: the cached step. ``trunk_runs`` counts the trunk forwards the
 trainer ran, ``last_tier`` names the tier of the last cached step.
 
 On more than one rank (``parallel/mesh.py``: ``mesh.launch``, ``torchrun``,
-or ``cli/main.py --num_devices N``) the generation task trains as JAX's
-does over its ``data`` mesh, one process a device: each rank is handed its
-own rows of every global batch (the loader's ``shard_index``/
-``shard_count``), the trained modules (``conv_map``, the generator)
-are wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``:
-the train-mode BN statistics are all-reduced in the layers, so the running
-averages agree already) or, with ``parallel.fsdp``, sharded by FSDP2 as
-JAX's ``fsdp_sharding`` places them (``fsdp_dims``; the tensors JAX keeps
-whole stay whole, their gradients averaged here); the VAE noise is drawn
-for the global batch and each rank keeps its rows; the reported metrics
-and ``evaluate``'s sums are all-reduced; only rank 0 writes files (a
-barrier follows each write); the feature cache keeps each rank's tiers over
-the windows of its rows, keyed by global window ids (a window that moves
-to another rank after a reshuffle misses there: the partial tier runs the
-trunk on such rows alone). Other tasks (their ``one_device_reason``),
-correspondence and ``tensor_parallel > 1`` raise at more than one rank,
-each with its reason (``ROADMAP.md`` Queue 1, item 8.1, second
-half). With one process nothing of this runs.
+or ``cli/main.py --num_devices N``) the generation, embedding and
+reconstruction tasks train as JAX's do over its ``data`` mesh, one process
+a device: each rank is handed its own rows of every global batch (the
+loader's ``shard_index``/``shard_count``); the task is wrapped in
+``DistributedDataParallel`` (``broadcast_buffers=False``: the train-mode
+BN statistics are all-reduced in the layers, so the running averages agree
+already) or, with ``parallel.fsdp``, the modules it trains
+(``trained_modules``) are sharded by FSDP2 as JAX's ``fsdp_sharding``
+places them (``fsdp_dims``; the tensors JAX keeps whole stay whole, their
+gradients averaged here); the step's noise is the task's draw for the
+global batch (``global_noise``), of which each rank keeps its rows, and
+the generator goes on from there, the same on every rank (the embedding
+task's moddrop draws); the reported metrics and ``evaluate``'s sums are
+all-reduced; only rank 0 writes files (a barrier follows each write); the
+feature cache keeps each rank's tiers over the windows of its rows, keyed
+by global window ids (a window that moves to another rank after a
+reshuffle misses there: the partial tier runs the trunk on such rows
+alone). Other tasks (their ``one_device_reason``), correspondence and
+``tensor_parallel > 1`` raise at more than one rank, each with its reason
+(``ROADMAP.md`` Queue 1, item 8.1, second half). With one process nothing
+of this runs.
 
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
@@ -147,7 +150,7 @@ def data_generator(seed: int, *index: int) -> torch.Generator:
     return torch.Generator().manual_seed(s)
 
 
-def fsdp_dims(task: GenerationTask, world: int) -> dict:
+def fsdp_dims(task: torch.nn.Module, world: int) -> dict:
     """The port dim each trained tensor of ``task`` is sharded on over
     ``world`` ranks, or None (kept whole): JAX's ``fsdp_sharding`` rule
     (``mesh.fsdp_axis``) on the tensor's flax shape, mapped through its
@@ -240,8 +243,8 @@ class Trainer:
                 raise NotImplementedError(f"{type(task).__name__}: {task.one_device_reason} ({SECOND_HALF})")
 
     def _distribute(self) -> None:
-        """A rank of a group (of one, too): wrap the trained modules in DDP,
-        or shard them with FSDP2 (``parallel.fsdp``)."""
+        """A rank of a group (of one, too): wrap the task in DDP, or shard
+        the modules it trains with FSDP2 (``parallel.fsdp``)."""
         task = self.task
         if not self.config.parallel.fsdp:
             self._loss = torch.nn.parallel.DistributedDataParallel(task, broadcast_buffers=False)
@@ -253,11 +256,11 @@ class Trainer:
             for t in (*task.parameters(), *task.buffers()):
                 torch.distributed.broadcast(t.data, 0)
         dims = fsdp_dims(task, mesh.world())
-        for module in (task.resnet.conv_map, task.generator):
+        for module in task.trained_modules():
             for p in module.parameters():  # FSDP2 shards contiguous tensors only (the convs are channels-last)
                 p.data = p.data.contiguous()
             whole = [p for p in module.parameters() if dims[p] is None]
-            # conv_map's kernel is read again by the L2 term after its forward: keep it gathered until backward
+            # the L2 terms read kernels again after the forward: keep them gathered until backward
             fully_shard(module, shard_placement_fn=lambda p: Shard(dims[p]), reshard_after_forward=False,
                         ignored_params=set(whole) or None)
             self._sharded.append(module)
@@ -271,17 +274,15 @@ class Trainer:
             module.reshard()
 
     def _rank_noise(self, eps, generator, rows: int):
-        """More than one rank: ``(eps, generator)`` for this rank's ``rows``
-        noise rows. The noise of the global batch (given, or drawn from
-        ``generator`` at the global shape, as one device draws it), cut to the
-        rank's rows."""
+        """More than one rank: ``(eps, generator)`` for this rank's batch of
+        ``rows`` frames. The noise of the global batch (given, or the task's
+        ``global_noise`` from ``generator``, as one device draws it), cut to
+        the rank's rows; the generator goes on past that draw, in the same
+        state on every rank."""
         if eps is not None:
             return mesh.shard_rows(eps), None
-        if self.cfg.ae:  # the deterministic AE draws nothing
-            return None, generator
-        dim = self.task.generator.vae.latent_dim
-        noise = torch.randn((rows * mesh.world(), dim), generator=generator, device=self.device)
-        return mesh.shard_rows(noise), None
+        noise = self.task.global_noise(rows * mesh.world(), generator)
+        return (None if noise is None else mesh.shard_rows(noise)), generator
 
     def _average_whole_grads(self) -> None:
         """FSDP: average the gradients of the tensors it keeps whole (its

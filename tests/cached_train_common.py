@@ -8,6 +8,7 @@ import pytest
 from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_tmp import module_dir
 
 UNITS = (1, 1, 1, 1)
 CLIPS = 2
@@ -17,8 +18,8 @@ WINDOW = 12 * 14 * 19 * 2048 * 4  # one window's f32 features
 @pytest.fixture(scope="module")
 def lists(tmp_path_factory):
     # 4 videos x 2 seconds = 8 one-second windows
-    return write_synthetic_dataset(str(tmp_path_factory.mktemp("cached_ds")), num_classes=2,
-                                   videos_per_class=2, seconds_per_video=2, seed=1)
+    with module_dir(tmp_path_factory, "cached_ds") as tmp:
+        yield write_synthetic_dataset(str(tmp), num_classes=2, videos_per_class=2, seconds_per_video=2, seed=1)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, wr
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from torch_tmp import module_dir
 
 LR = 1e-4
 STEPS_PER_EPOCH = 2
@@ -21,16 +22,16 @@ STEPS_PER_EPOCH = 2
 
 @pytest.fixture(scope="module")
 def lists(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_fit")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    out = {}
-    for split, n in (("training", 2), ("validation", 1)):
-        with open(full[split]) as f:
-            files = f.read().split()[:n]
-        out[split] = str(tmp / f"{split}.txt")
-        with open(out[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    return out
+    with module_dir(tmp_path_factory, "torch_fit") as tmp:
+        full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        out = {}
+        for split, n in (("training", 2), ("validation", 1)):
+            with open(full[split]) as f:
+                files = f.read().split()[:n]
+            out[split] = str(tmp / f"{split}.txt")
+            with open(out[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        yield out
 
 
 def _config(mod, tmp, name, epochs=2, **model):
@@ -84,6 +85,7 @@ def _assert_same_state(a, b):
 def uninterrupted(lists, tmp_path_factory):
     """The VAE run every resume is held against: two epochs from seed-0
     weights."""
-    trainer = _port(tmp_path_factory.mktemp("whole"), "whole")
-    state = trainer.fit(*_loaders(lists))
-    return trainer, state
+    with module_dir(tmp_path_factory, "whole", need_mb=400) as tmp:  # two snapshots of about 155 MB
+        trainer = _port(tmp, "whole")
+        state = trainer.fit(*_loaders(lists))
+        yield trainer, state

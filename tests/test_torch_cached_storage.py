@@ -11,6 +11,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader
 from acoustic_image_generation_tpu_torch.train import feature_cache as fc
 from cached_train_common import WINDOW, batch, lists, loader, trainer  # noqa: F401
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def test_f8_storage_dtypes_and_loss_envelope(batch, tmp_path):

@@ -33,6 +33,7 @@ from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, wr
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 LR = 1e-4
@@ -41,8 +42,8 @@ LR = 1e-4
 @pytest.fixture(scope="module")
 def lists(tmp_path_factory):
     # 2 videos x 2 seconds = 4 one-second windows
-    return write_synthetic_dataset(str(tmp_path_factory.mktemp("jax_cached_ds")), num_classes=2,
-                                   videos_per_class=1, seconds_per_video=2, seed=2)
+    with module_dir(tmp_path_factory, "jax_cached_ds") as tmp:
+        yield write_synthetic_dataset(str(tmp), num_classes=2, videos_per_class=1, seconds_per_video=2, seed=2)
 
 
 def jax_trainer(tmp_path, clips, **model):

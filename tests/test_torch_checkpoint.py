@@ -47,6 +47,7 @@ from acoustic_image_generation_tpu_torch.train import warmstart
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 LR = 1e-4
@@ -94,23 +95,24 @@ def _leaves(tree, prefix=()):
 def jax_run(tmp_path_factory):
     """JAX's Trainer: init, the init's checkpoint bytes, two steps and their
     checkpoint, then the third step with the noise it drew."""
-    tmp = tmp_path_factory.mktemp("jax_ckpt")
-    cfg = _jax_cfg(tmp)
-    jtr = JaxTrainer(JaxTask(cfg), cfg, mesh=make_mesh(1))
-    state = jtr.init_state(_jax_batch(_raw(100)))
-    init_path = jckpt.save_checkpoint(str(tmp), "init", state)
-    for s in range(2):
-        state, _ = jtr.train_step(state, _jax_batch(_raw(100 + s)))
-    two_path = jckpt.save_checkpoint(str(tmp), "two", state)
-    raw = _raw(102)
-    rngs = jrng.train_step_rngs(jtr.base_key, 2)
-    out, _ = jtr.task._forward(state.params, state.batch_stats,
-                               jtr._prepare(jtr.device_batch(_jax_batch(raw)), key=rngs["data"]), rngs, train=True)
-    eps = np.asarray((out.z - out.mean) / out.std)
-    two = jax.device_get(state)
-    state, metrics = jtr.train_step(state, _jax_batch(raw))
-    return dict(cfg=cfg, trainer=jtr, init_path=init_path, two_path=two_path, two=two, eps=eps, raw=raw,
-                three=jax.device_get(state), loss=float(metrics["loss"]))
+    with module_dir(tmp_path_factory, "jax_ckpt", need_mb=400) as tmp:  # two full checkpoints
+        cfg = _jax_cfg(tmp)
+        jtr = JaxTrainer(JaxTask(cfg), cfg, mesh=make_mesh(1))
+        state = jtr.init_state(_jax_batch(_raw(100)))
+        init_path = jckpt.save_checkpoint(str(tmp), "init", state)
+        for s in range(2):
+            state, _ = jtr.train_step(state, _jax_batch(_raw(100 + s)))
+        two_path = jckpt.save_checkpoint(str(tmp), "two", state)
+        raw = _raw(102)
+        rngs = jrng.train_step_rngs(jtr.base_key, 2)
+        out, _ = jtr.task._forward(state.params, state.batch_stats,
+                                   jtr._prepare(jtr.device_batch(_jax_batch(raw)), key=rngs["data"]), rngs,
+                                   train=True)
+        eps = np.asarray((out.z - out.mean) / out.std)
+        two = jax.device_get(state)
+        state, metrics = jtr.train_step(state, _jax_batch(raw))
+        yield dict(cfg=cfg, trainer=jtr, init_path=init_path, two_path=two_path, two=two, eps=eps, raw=raw,
+                   three=jax.device_get(state), loss=float(metrics["loss"]))
 
 
 # ---------------------------------------------------------------- codec

@@ -57,6 +57,7 @@ from acoustic_image_generation_tpu_torch.data import preprocess as ppre
 from acoustic_image_generation_tpu_torch.train import classify
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 LR = 1e-4
 CLIPS, FRAMES = 2, 12

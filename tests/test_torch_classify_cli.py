@@ -37,6 +37,7 @@ from acoustic_image_generation_tpu_torch.train import classify, warmstart
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 LR = 1e-4
 FLAGS = ["--resnet_units", "1,1,1,1", "--compute_dtype", "float32", "--learning_rate", "1e-4"]
@@ -107,16 +108,16 @@ def test_dispatch_matches_jax():
 
 @pytest.fixture(scope="module")
 def lists(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("classify_cli")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    out = {}
-    for split, n in (("training", 4), ("validation", 2)):
-        with open(full[split]) as f:
-            files = f.read().split()[:n]
-        out[split] = str(tmp / f"{split}.txt")
-        with open(out[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    return out
+    with module_dir(tmp_path_factory, "classify_cli") as tmp:
+        full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        out = {}
+        for split, n in (("training", 4), ("validation", 2)):
+            with open(full[split]) as f:
+                files = f.read().split()[:n]
+            out[split] = str(tmp / f"{split}.txt")
+            with open(out[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        yield out
 
 
 def _fit_argv(lists, tmp, name, epochs):

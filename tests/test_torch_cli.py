@@ -31,6 +31,7 @@ from acoustic_image_generation_tpu_torch.train.joint import JointTask
 from acoustic_image_generation_tpu_torch.train.project import ProjectTask
 from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructTask
 from torch_threads import THREADS, few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,9 +102,11 @@ def test_dispatch_runs_the_generation_task_and_names_what_waits():
     assert embed.cfg.num_channels == 13 and embed.acoustic.layer1.conv_1.weight.shape[0] == 9 * 13
     # the classification family is ported (tests/test_torch_classify_cli.py)
     assert isinstance(pmain.select_task(parse(["--model", "DualCamNet", "--mfcc", "1"]), "cpu"), ClassificationTask)
-    # more than one device trains the generation task only (tests/test_torch_parallel.py)
+    # more than one device trains the generation, embedding and reconstruction tasks only
+    # (tests/test_torch_parallel*.py)
     with pytest.raises(NotImplementedError, match=r"item 8\.1, second half"):
-        pmain.select_task(parse(["--embedding", "1", "--num_devices", "4"]), "cpu")
+        pmain.select_task(parse(["--embedding", "1", "--project", "1", "--num_devices", "4"]), "cpu")
+    assert isinstance(pmain.select_task(parse(["--embedding", "1", "--num_devices", "4"]), "cpu"), EmbedTask)
 
 
 def test_cli_runs_on_cuda_unless_told_otherwise(monkeypatch):
@@ -122,28 +125,28 @@ def run(tmp_path_factory):
     """``main --mode train`` in a subprocess, two epochs, then ``main --mode
     test --restore_checkpoint`` on the best epoch, as the reference's
     sweep scripts run them."""
-    tmp = tmp_path_factory.mktemp("torch_cli")
-    lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    small = {}
-    for split, n in (("training", 2), ("validation", 1), ("testing", 2)):
-        with open(lists[split]) as f:
-            files = f.read().split()[:n]
-        small[split] = str(tmp / f"{split}.txt")
-        with open(small[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    flags = ["--embedding", "1", "--mfcc", "1", "--resnet_units", "1,1,1,1", "--compute_dtype", "float32",
-             "--device", "cpu", "--batch_size", "1", "--num_epochs", "2", "--learning_rate", "0.001",
-             "--exp_name", "cli", "--checkpoint_dir", str(tmp / "ckpt"), "--train_file", small["training"],
-             "--valid_file", small["validation"], "--test_file", small["testing"]]
-    entry = [sys.executable, "-m", "acoustic_image_generation_tpu_torch.cli.main"]
-    env = dict(os.environ, OMP_NUM_THREADS=str(THREADS))  # a few torch threads, as in this process
-    subprocess.run([*entry, *flags, "--mode", "train"], check=True, cwd=ROOT, env=env, timeout=600)
-    run_dir = tmp / "ckpt" / "cli"
-    best = BestTracker.read_best_epoch(str(run_dir))
-    ckpt = str(run_dir / f"epoch_{best}.ckpt")
-    subprocess.run([*entry, *flags, "--mode", "test", "--restore_checkpoint", ckpt], check=True, cwd=ROOT,
-                   env=env, timeout=600)
-    return dict(flags=flags, run_dir=run_dir, best=best, ckpt=ckpt, tmp=tmp)
+    with module_dir(tmp_path_factory, "torch_cli", need_mb=500) as tmp:  # the run's snapshots
+        lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        small = {}
+        for split, n in (("training", 2), ("validation", 1), ("testing", 2)):
+            with open(lists[split]) as f:
+                files = f.read().split()[:n]
+            small[split] = str(tmp / f"{split}.txt")
+            with open(small[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        flags = ["--embedding", "1", "--mfcc", "1", "--resnet_units", "1,1,1,1", "--compute_dtype", "float32",
+                 "--device", "cpu", "--batch_size", "1", "--num_epochs", "2", "--learning_rate", "0.001",
+                 "--exp_name", "cli", "--checkpoint_dir", str(tmp / "ckpt"), "--train_file", small["training"],
+                 "--valid_file", small["validation"], "--test_file", small["testing"]]
+        entry = [sys.executable, "-m", "acoustic_image_generation_tpu_torch.cli.main"]
+        env = dict(os.environ, OMP_NUM_THREADS=str(THREADS))  # a few torch threads, as in this process
+        subprocess.run([*entry, *flags, "--mode", "train"], check=True, cwd=ROOT, env=env, timeout=600)
+        run_dir = tmp / "ckpt" / "cli"
+        best = BestTracker.read_best_epoch(str(run_dir))
+        ckpt = str(run_dir / f"epoch_{best}.ckpt")
+        subprocess.run([*entry, *flags, "--mode", "test", "--restore_checkpoint", ckpt], check=True, cwd=ROOT,
+                       env=env, timeout=600)
+        yield dict(flags=flags, run_dir=run_dir, best=best, ckpt=ckpt, tmp=tmp)
 
 
 def test_train_then_test_through_the_entry_point(run):

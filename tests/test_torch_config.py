@@ -12,6 +12,7 @@ from acoustic_image_generation_tpu.core import config as jconfig
 from acoustic_image_generation_tpu_torch.core import config as pconfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 SECTIONS = ("DataConfig", "ModelConfig", "OptimConfig", "RunConfig", "ParallelConfig", "ExperimentConfig")
 
@@ -77,16 +78,19 @@ def test_generation_config_of_an_experiment():
 
 @pytest.mark.parametrize("parallel", [dict(num_devices=2), dict(fsdp=True), dict(tensor_parallel=2)])
 def test_more_than_one_device_raises(parallel):
-    """The generation task takes more devices and FSDP (tests/test_torch_parallel.py); tensor parallelism still
-    raises, as does every other family at more than one device."""
+    """The generation, embedding and reconstruction tasks take more devices and FSDP
+    (tests/test_torch_parallel*.py); tensor parallelism still raises, as do the other families at more than one
+    device."""
     cfg = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**parallel))
     if "tensor_parallel" in parallel:
         with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
             pconfig.generation_config(cfg)
     else:
         assert pconfig.generation_config(cfg) == pconfig.generation_config(pconfig.ExperimentConfig())
+        assert pconfig.embed_config(cfg) == pconfig.embed_config(pconfig.ExperimentConfig())
+        assert pconfig.reconstruct_config(cfg) == pconfig.reconstruct_config(pconfig.ExperimentConfig())
     with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
-        pconfig.embed_config(cfg)
+        pconfig.project_config(cfg)
     pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(num_devices=1)))
     # optax's Adam is the trainer's choice (tests/test_torch_optim.py): the task's configuration is the same
     optax = pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False))

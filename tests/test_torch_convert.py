@@ -33,6 +33,7 @@ from acoustic_image_generation_tpu_torch.data import convert as pconvert
 from acoustic_image_generation_tpu_torch.data import listing as plisting
 from acoustic_image_generation_tpu_torch.data import tfrecord
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECONDS = 2
@@ -82,39 +83,38 @@ def _flickr_xml(path, name, boxes):
 def raw(tmp_path_factory):
     """Every raw layout the converters read, written once; removed after
     the module."""
-    root = tmp_path_factory.mktemp("torch_convert")
-    captures = root / "captures"
-    for c in range(2):
-        _capture(captures / f"class_{c}" / f"data_{c + 3:03d}", seed=c)
-    dc = root / "dc" / "audio"
-    dc.mkdir(parents=True)
-    frames = np.random.default_rng(5).integers(-(2**20), 2**20, (3, 128, 1024)).astype(np.int32)
-    for h, frame in enumerate(frames):
-        frame.flatten(order="F").tofile(dc / f"A_{h + 1:06d}.dc")
+    with module_dir(tmp_path_factory, "torch_convert") as root:
+        captures = root / "captures"
+        for c in range(2):
+            _capture(captures / f"class_{c}" / f"data_{c + 3:03d}", seed=c)
+        dc = root / "dc" / "audio"
+        dc.mkdir(parents=True)
+        frames = np.random.default_rng(5).integers(-(2**20), 2**20, (3, 128, 1024)).astype(np.int32)
+        for h, frame in enumerate(frames):
+            frame.flatten(order="F").tofile(dc / f"A_{h + 1:06d}.dc")
 
-    flickr = root / "flickr"
-    data, ann = flickr / "Dataset" / "Data" / "0", flickr / "Dataset" / "Annotations"
-    data.mkdir(parents=True)
-    ann.mkdir(parents=True)
-    for i, fs, dtype in ((3, 22050, np.int16), (7, 44100, np.float32), (9, 8000, np.int16)):
-        _image(data / f"{i}.jpg", (256, 256), i)
-        _wav(data / f"{i}.wav", 1.5, fs, i, dtype)
-        _flickr_xml(ann / f"{i}.xml", f"{i}.jpg", [(10, 20, 120, 200, "object"), (30, 40, 60, 90, "ambient sound")])
-    (flickr / "test_list.txt").write_text("3.jpg\n7.jpg\n")  # 9 is not listed
+        flickr = root / "flickr"
+        data, ann = flickr / "Dataset" / "Data" / "0", flickr / "Dataset" / "Annotations"
+        data.mkdir(parents=True)
+        ann.mkdir(parents=True)
+        for i, fs, dtype in ((3, 22050, np.int16), (7, 44100, np.float32), (9, 8000, np.int16)):
+            _image(data / f"{i}.jpg", (256, 256), i)
+            _wav(data / f"{i}.wav", 1.5, fs, i, dtype)
+            _flickr_xml(ann / f"{i}.xml", f"{i}.jpg", [(10, 20, 120, 200, "object"), (30, 40, 60, 90, "ambient sound")])
+        (flickr / "test_list.txt").write_text("3.jpg\n7.jpg\n")  # 9 is not listed
 
-    ave = root / "ave"
-    _capture(ave / "class_3" / "data_002", seed=7)
-    (ave / "class_3" / "data_002" / "seconds.txt").write_text("1:1\n")
+        ave = root / "ave"
+        _capture(ave / "class_3" / "data_002", seed=7)
+        (ave / "class_3" / "data_002" / "seconds.txt").write_text("1:1\n")
 
-    collected = root / "collected"
-    collected.mkdir()
-    for i in (14, 20, 21):
-        _image(collected / f"{i}.png", (200, 150), i)
-        _wav(collected / f"{i}.wav", 0.5, 22050, i)
-    (collected / "test_list.txt").write_text("14.png\n20.png\n")
-    yield {"root": root, "captures": captures, "dc": root / "dc", "dc_frames": frames, "flickr": flickr,
-           "ave": ave, "collected": collected}
-    shutil.rmtree(root, ignore_errors=True)
+        collected = root / "collected"
+        collected.mkdir()
+        for i in (14, 20, 21):
+            _image(collected / f"{i}.png", (200, 150), i)
+            _wav(collected / f"{i}.wav", 0.5, 22050, i)
+        (collected / "test_list.txt").write_text("14.png\n20.png\n")
+        yield {"root": root, "captures": captures, "dc": root / "dc", "dc_frames": frames, "flickr": flickr,
+               "ave": ave, "collected": collected}
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ from acoustic_image_generation_tpu_torch.data.schema import decode_record
 from acoustic_image_generation_tpu_torch.data.synthetic import write_flickr_dataset, write_synthetic_dataset
 from acoustic_image_generation_tpu_torch.data.windowing import plan_windows
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 FIELDS = ("acoustic", "audio", "video", "action", "location", "window_ids")
 
@@ -28,14 +29,14 @@ FIELDS = ("acoustic", "audio", "video", "action", "location", "window_ids")
 @pytest.fixture(scope="module")
 def port_lists(tmp_path_factory):
     # 4 videos x 2 seconds = 8 one-second windows
-    return write_synthetic_dataset(str(tmp_path_factory.mktemp("port_ds")), num_classes=2,
-                                   videos_per_class=2, seconds_per_video=2, seed=3)
+    with module_dir(tmp_path_factory, "port_ds") as tmp:
+        yield write_synthetic_dataset(str(tmp), num_classes=2, videos_per_class=2, seconds_per_video=2, seed=3)
 
 
 @pytest.fixture(scope="module")
 def jax_lists(tmp_path_factory):
-    return jax_write(str(tmp_path_factory.mktemp("jax_ds")), num_classes=2, videos_per_class=1,
-                     seconds_per_video=2, seed=3)
+    with module_dir(tmp_path_factory, "jax_ds") as tmp:
+        yield jax_write(str(tmp), num_classes=2, videos_per_class=1, seconds_per_video=2, seed=3)
 
 
 def _files(list_path):

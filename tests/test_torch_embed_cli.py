@@ -15,7 +15,6 @@ tests run on two threads: every pass runs the full-width VAEs on the CPU.
 
 import json
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -30,6 +29,7 @@ from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer, as_raw
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 MODALITIES = ("acoustic", "audio", "video")
 
@@ -38,30 +38,33 @@ MODALITIES = ("acoustic", "audio", "video")
 def run(tmp_path_factory):
     """Shards of two classes cut to 2 training, 2 validation and 4 test
     windows, their statistics, and a two-epoch CLI run of batches of 2."""
-    tmp = tmp_path_factory.mktemp("embed_cli")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    lists = {}
-    for split, keep in (("training", slice(0, 8, 4)), ("validation", slice(1, 8, 4)), ("testing", slice(0, 8, 2))):
-        lists[split] = str(tmp / "ds" / "lists" / f"cut_{split}.txt")
-        with open(full[split]) as f:
-            files = f.read().split()[keep]
-        with open(lists[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    # over every training window (both tones), so that no bin's variance cancels to nothing
-    mean, std = stats.compute_spectrogram_stats(AcousticImageDataLoader(full["training"], "training", 4),
-                                                device="cpu")
-    stats.save_stats(os.path.join(os.path.dirname(lists["training"]), "stats2s"), mean, std)
-    flags = ["--embedding", "1", "--compute_dtype", "float32", "--batch_size", "2", "--normalize_spectrogram", "1",
-             "--train_file", lists["training"], "--valid_file", lists["validation"], "--test_file", lists["testing"],
-             "--checkpoint_dir", str(tmp / "runs"), "--exp_name", "embed", "--device", "cpu"]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)  # beside the other test workers
-    assert pmain.main(flags + ["--mode", "train", "--num_epochs", "2"]) == 0
-    run_dir = tmp / "runs" / "embed"
-    best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
-    yield tmp, flags, run_dir, best
-    torch.set_num_threads(threads)
-    shutil.rmtree(tmp, ignore_errors=True)  # the full-width checkpoints: hundreds of MB each
+    with module_dir(tmp_path_factory, "embed_cli", need_mb=1500) as tmp:  # full-width checkpoints, hundreds of MB each
+        full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        lists = {}
+        for split, keep in (("training", slice(0, 8, 4)), ("validation", slice(1, 8, 4)), ("testing", slice(0, 8, 2))):
+            lists[split] = str(tmp / "ds" / "lists" / f"cut_{split}.txt")
+            with open(full[split]) as f:
+                files = f.read().split()[keep]
+            with open(lists[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        # over every training window (both tones), so that no bin's variance cancels to nothing
+        mean, std = stats.compute_spectrogram_stats(AcousticImageDataLoader(full["training"], "training", 4),
+                                                    device="cpu")
+        stats.save_stats(os.path.join(os.path.dirname(lists["training"]), "stats2s"), mean, std)
+        flags = ["--embedding", "1", "--compute_dtype", "float32", "--batch_size", "2", "--normalize_spectrogram", "1",
+                 "--train_file", lists["training"], "--valid_file", lists["validation"],
+                 "--test_file", lists["testing"], "--checkpoint_dir", str(tmp / "runs"), "--exp_name", "embed",
+                 "--device", "cpu"]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)  # beside the other test workers
+        assert pmain.main(flags + ["--mode", "train", "--num_epochs", "2"]) == 0
+        run_dir = tmp / "runs" / "embed"
+        best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
+        for snapshot in run_dir.glob("epoch_*.ckpt"):  # the tests read the best one only
+            if snapshot != best:
+                snapshot.unlink()
+        yield tmp, flags, run_dir, best
+        torch.set_num_threads(threads)
 
 
 def test_train_and_test_from_the_command_line(run):

@@ -25,7 +25,6 @@ restored leaves bit for bit. Noise: the eval forward draws none; the step takes 
 import functools
 import json
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +48,7 @@ from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTa
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from test_torch_embed import draws, jax_batch, raw_clips
 from test_torch_embed_models import perturb
+from torch_tmp import module_dir
 
 LR = 1e-4
 
@@ -76,24 +76,23 @@ def data(tmp_path_factory):
     """Shards: 2 training windows (one batch), 3 validation windows
     (batches of 2: the second padded, valid 1); the statistics of all five
     in ``stats2s`` beside the lists."""
-    tmp = tmp_path_factory.mktemp("embed_eval")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    lists = {}
-    for split, n in (("training", 2), ("validation", 3)):
-        with open(full[split] if split == "training" else full["training"]) as f:
-            files = f.read().split()
-        files = files[:n] if split == "training" else files[-n:]
-        lists[split] = str(tmp / f"{split}.txt")
-        with open(lists[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    # over both classes' tones, so that no bin's variance cancels to nothing
-    with open(tmp / "all.txt", "w") as f:
-        f.write(open(lists["training"]).read() + open(lists["validation"]).read())
-    mean, std = stats.compute_spectrogram_stats(AcousticImageDataLoader(str(tmp / "all.txt"), "testing", 2),
-                                                device="cpu")
-    stats.save_stats(str(tmp / "stats2s"), mean, std)
-    yield lists, tmp
-    shutil.rmtree(tmp, ignore_errors=True)  # the full-width checkpoints: hundreds of MB each
+    with module_dir(tmp_path_factory, "embed_eval", need_mb=1500) as tmp:  # full-width checkpoints, hundreds of MB each
+        full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        lists = {}
+        for split, n in (("training", 2), ("validation", 3)):
+            with open(full[split] if split == "training" else full["training"]) as f:
+                files = f.read().split()
+            files = files[:n] if split == "training" else files[-n:]
+            lists[split] = str(tmp / f"{split}.txt")
+            with open(lists[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        # over both classes' tones, so that no bin's variance cancels to nothing
+        with open(tmp / "all.txt", "w") as f:
+            f.write(open(lists["training"]).read() + open(lists["validation"]).read())
+        mean, std = stats.compute_spectrogram_stats(AcousticImageDataLoader(str(tmp / "all.txt"), "testing", 2),
+                                                    device="cpu")
+        stats.save_stats(str(tmp / "stats2s"), mean, std)
+        yield lists, tmp
 
 
 def _config(mod, tmp, name, batch_size=2, epochs=2, datatype="outdoor"):

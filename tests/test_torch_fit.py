@@ -34,6 +34,7 @@ from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from fit_common import LR, STEPS_PER_EPOCH, _config, _leaves, _loaders, _port, _records, lists  # noqa: F401
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def test_fit_matches_jax(lists, tmp_path):

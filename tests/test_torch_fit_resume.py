@@ -11,6 +11,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.optim import TF1Adam
 from fit_common import STEPS_PER_EPOCH, _assert_same_state, _loaders, _port, _records, lists, uninterrupted  # noqa: F401
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def test_ordinary_resume_is_the_uninterrupted_run(lists, uninterrupted, tmp_path):

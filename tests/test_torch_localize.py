@@ -32,6 +32,7 @@ from acoustic_image_generation_tpu_torch.evaluation import iou
 from acoustic_image_generation_tpu_torch.evaluation.localize import run_iou_sweep
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def _images(seed, n=16):

@@ -29,27 +29,29 @@ from acoustic_image_generation_tpu_torch.data.synthetic import write_flickr_data
 from acoustic_image_generation_tpu_torch.evaluation.localize_boxes import run_box_iou_sweep
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("boxes")
-    lists = write_flickr_dataset(str(tmp / "flickr"), num_videos=2, seconds_per_video=2)
-    test_list = str(tmp / "testing.txt")
-    with open(lists["testing"]) as f, open(test_list, "w") as g:
-        g.write("\n".join(f.read().split()[:3]) + "\n")
-    cfg = ExperimentConfig(data=DataConfig(batch_size=2), model=ModelConfig(resnet_units=(1, 1, 1, 1), ae=True),
-                           parallel=ParallelConfig(compute_dtype="float32"))
-    jloader = JaxLoader(test_list, "testing", 2, include_boxes=True)
-    jtr = JaxTrainer(JaxTask(cfg), cfg, mesh=make_mesh(1))
-    state = jtr.init_state(next(iter(jloader.batches(0))))
-    params = jax.tree_util.tree_map(np.array, jax.device_get(state.params))
-    params["generator"]["final"]["kernel"] *= 30.0
-    state = state.replace(params=params)
-    task = GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1), ae=True, compute_dtype="float32"), device="cpu")
-    bridge.load_flax(task, *jax.device_get((state.params, state.batch_stats)))
-    loader = AcousticImageDataLoader(test_list, "testing", 2, include_boxes=True)
-    return tmp, jtr, state, jloader, task, loader
+    with module_dir(tmp_path_factory, "boxes") as tmp:
+        lists = write_flickr_dataset(str(tmp / "flickr"), num_videos=2, seconds_per_video=2)
+        test_list = str(tmp / "testing.txt")
+        with open(lists["testing"]) as f, open(test_list, "w") as g:
+            g.write("\n".join(f.read().split()[:3]) + "\n")
+        cfg = ExperimentConfig(data=DataConfig(batch_size=2), model=ModelConfig(resnet_units=(1, 1, 1, 1), ae=True),
+                               parallel=ParallelConfig(compute_dtype="float32"))
+        jloader = JaxLoader(test_list, "testing", 2, include_boxes=True)
+        jtr = JaxTrainer(JaxTask(cfg), cfg, mesh=make_mesh(1))
+        state = jtr.init_state(next(iter(jloader.batches(0))))
+        params = jax.tree_util.tree_map(np.array, jax.device_get(state.params))
+        params["generator"]["final"]["kernel"] *= 30.0
+        state = state.replace(params=params)
+        task = GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1), ae=True, compute_dtype="float32"),
+                              device="cpu")
+        bridge.load_flax(task, *jax.device_get((state.params, state.batch_stats)))
+        loader = AcousticImageDataLoader(test_list, "testing", 2, include_boxes=True)
+        yield tmp, jtr, state, jloader, task, loader
 
 
 @pytest.mark.parametrize("invert", [True, False], ids=["below_mean", "above_mean"])

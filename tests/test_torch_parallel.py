@@ -36,7 +36,6 @@ Tolerances, and why:
 
 import concurrent.futures as cf
 import contextlib
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +67,7 @@ from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_sta
 from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer, step_generator
+from torch_tmp import module_dir
 
 LR = pr.LR
 CLIPS, FRAMES = 2, 2
@@ -147,37 +147,36 @@ def as_jax_batch(raw):
 def world(tmp_path_factory):
     """The inputs, the spawn of two ranks (in a thread) and the JAX
     references."""
-    tmp = tmp_path_factory.mktemp("parallel")
-    lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=1, videos_per_class=1, seconds_per_video=3, seed=4)
-    spec = dict(init=bridge.to_flax(pr.task()), ae_init=bridge.to_flax(pr.task(ae=True)),
-                raws=[raw_clips(100), raw_clips(101)],
-                eps=np.random.default_rng(7).standard_normal((CLIPS * FRAMES, 150)).astype(np.float32),
-                stats_input=np.random.default_rng(8).standard_normal((4, 6, 5, 64)).astype(np.float32),
-                valid_list=lists["validation"], ddp_dir=str(tmp / "ddp"), fsdp_dir=str(tmp / "fsdp"))
-    pool = cf.ThreadPoolExecutor(1)
-    ranks = pool.submit(mesh.launch, pr.run_cases, 2, spec, device="cpu", tmp_dir=str(tmp))
+    with module_dir(tmp_path_factory, "parallel", need_mb=1000) as tmp:  # the checkpoints: hundreds of MB
+        lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=1, videos_per_class=1, seconds_per_video=3, seed=4)
+        spec = dict(init=bridge.to_flax(pr.task()), ae_init=bridge.to_flax(pr.task(ae=True)),
+                    raws=[raw_clips(100), raw_clips(101)],
+                    eps=np.random.default_rng(7).standard_normal((CLIPS * FRAMES, 150)).astype(np.float32),
+                    stats_input=np.random.default_rng(8).standard_normal((4, 6, 5, 64)).astype(np.float32),
+                    valid_list=lists["validation"], ddp_dir=str(tmp / "ddp"), fsdp_dir=str(tmp / "fsdp"))
+        pool = cf.ThreadPoolExecutor(1)
+        ranks = pool.submit(mesh.launch, pr.run_cases, 2, spec, device="cpu", tmp_dir=str(tmp))
 
-    # JAX's Trainer over a two-device mesh: two steps from the same weights and noise
-    jtr = JaxTrainer(JaxTask(jax_cfg(tmp, CLIPS)), jax_cfg(tmp, CLIPS))
-    state = jax_state(jtr, as_jax_batch(spec["raws"][0]), spec["init"])
-    template = jax.device_get(state)  # the train step donates its state
-    losses = []
-    with jax_noise(spec["eps"]):
-        for raw in spec["raws"]:
-            state, metrics = jtr.train_step(state, as_jax_batch(raw))
-            losses.append(float(metrics["loss"]))
-    jax_final = jax.device_get((state.params, state.batch_stats))
-    specs = dict(_specs(fsdp_sharding(spec["init"][0], make_mesh(2))))
-    # JAX's evaluate over a remainder batch (ae: no noise)
-    jae = JaxTrainer(JaxTask(jax_cfg(tmp, 2, ae=True)), jax_cfg(tmp, 2, ae=True))
-    jloader = JaxLoader(lists["validation"], "validation", 2)
-    jeval = jae.evaluate(jax_state(jae, next(iter(jloader.batches(0))), spec["ae_init"]), jloader)
+        # JAX's Trainer over a two-device mesh: two steps from the same weights and noise
+        jtr = JaxTrainer(JaxTask(jax_cfg(tmp, CLIPS)), jax_cfg(tmp, CLIPS))
+        state = jax_state(jtr, as_jax_batch(spec["raws"][0]), spec["init"])
+        template = jax.device_get(state)  # the train step donates its state
+        losses = []
+        with jax_noise(spec["eps"]):
+            for raw in spec["raws"]:
+                state, metrics = jtr.train_step(state, as_jax_batch(raw))
+                losses.append(float(metrics["loss"]))
+        jax_final = jax.device_get((state.params, state.batch_stats))
+        specs = dict(_specs(fsdp_sharding(spec["init"][0], make_mesh(2))))
+        # JAX's evaluate over a remainder batch (ae: no noise)
+        jae = JaxTrainer(JaxTask(jax_cfg(tmp, 2, ae=True)), jax_cfg(tmp, 2, ae=True))
+        jloader = JaxLoader(lists["validation"], "validation", 2)
+        jeval = jae.evaluate(jax_state(jae, next(iter(jloader.batches(0))), spec["ae_init"]), jloader)
 
-    out = ranks.result()
-    pool.shutdown()
-    yield dict(spec=spec, ranks=out, jax_losses=losses, jax_final=jax_final, jax_specs=specs, jax_eval=jeval,
-               jax_template=template, lists=lists)
-    shutil.rmtree(tmp, ignore_errors=True)  # the checkpoints: hundreds of MB
+        out = ranks.result()
+        pool.shutdown()
+        yield dict(spec=spec, ranks=out, jax_losses=losses, jax_final=jax_final, jax_specs=specs, jax_eval=jeval,
+                   jax_template=template, lists=lists)
 
 
 def _specs(tree, prefix=()):
@@ -362,13 +361,15 @@ def test_adam_moments_are_the_global_gradients(world, single, case):
 
 
 FAMILIES = {
-    "embedding": ["--embedding", "1"],
     "classification": ["--model", "DualCamNet", "--mfcc", "1"],
     "correspondence": ["--model", "DualCamNet", "--correspondence", "1"],
-    "reconstruction": ["--model", "UNet", "--encoder_type", "Ac"],
     "projection": ["--embedding", "1", "--project", "1"],
     "joint": ["--embedding", "1", "--jointmvae", "1"],
     "generation_correspondence": ["--embedding", "1", "--mfcc", "1", "--correspondence", "1"],
+}
+TAKEN = {  # trained on ranks by tests/test_torch_parallel_embed.py and test_torch_parallel_reconstruct.py
+    "embedding": ["--embedding", "1"],
+    "reconstruction": ["--model", "UNet", "--encoder_type", "Ac"],
 }
 
 
@@ -378,6 +379,12 @@ def test_what_waits_raises_at_two_devices(family):
     with pytest.raises(NotImplementedError, match=r"item 8\.1, second half"):
         pmain.task_config(cfg)
     pmain.task_config(pmain.config_from_args(pmain.build_parser().parse_args(FAMILIES[family])))
+
+
+@pytest.mark.parametrize("family", sorted(TAKEN))
+def test_embedding_and_reconstruction_take_two_devices(family):
+    for flags in (["--num_devices", "2"], []):
+        pmain.task_config(pmain.config_from_args(pmain.build_parser().parse_args(TAKEN[family] + flags)))
 
 
 def test_trainer_refuses_other_tasks_on_two_ranks(world):

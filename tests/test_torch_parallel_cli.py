@@ -18,7 +18,6 @@ import concurrent.futures as cf
 import dataclasses
 import json
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from acoustic_image_generation_tpu_torch.train.checkpoint import BestTracker
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 
 def _records(run_dir):
@@ -49,39 +49,39 @@ def _test_metrics(run_dir):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("parallel_cli")
-    lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=1, seconds_per_video=1, seed=3)
-    ckpt_dir = str(tmp / "ckpt")
-    common = ["--embedding", "1", "--mfcc", "1", "--ae", "1", "--resnet_units", "1,1,1,1", "--compute_dtype",
-              "float32", "--batch_size", "2", "--train_file", lists["training"], "--valid_file", lists["validation"],
-              "--test_file", lists["testing"], "--checkpoint_dir", ckpt_dir, "--num_devices", "2"]
-    # the common start: the port's seed-0 weights at step 0, in JAX's file format
-    cfg = pmain.config_from_args(pmain.build_parser().parse_args(common + ["--exp_name", "start"]))
-    one = dataclasses.replace(cfg, parallel=pconfig.ParallelConfig(compute_dtype="float32"))
-    start = Trainer(GenerationTask(pconfig.generation_config(one), device="cpu").init_params(0), one)
-    start_ckpt = start.save("start", start.init_state())
+    with module_dir(tmp_path_factory, "parallel_cli", need_mb=1000) as tmp:  # the checkpoints: hundreds of MB
+        lists = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=1, seconds_per_video=1, seed=3)
+        ckpt_dir = str(tmp / "ckpt")
+        common = ["--embedding", "1", "--mfcc", "1", "--ae", "1", "--resnet_units", "1,1,1,1", "--compute_dtype",
+                  "float32", "--batch_size", "2", "--train_file", lists["training"],
+                  "--valid_file", lists["validation"], "--test_file", lists["testing"], "--checkpoint_dir", ckpt_dir,
+                  "--num_devices", "2"]
+        # the common start: the port's seed-0 weights at step 0, in JAX's file format
+        cfg = pmain.config_from_args(pmain.build_parser().parse_args(common + ["--exp_name", "start"]))
+        one = dataclasses.replace(cfg, parallel=pconfig.ParallelConfig(compute_dtype="float32"))
+        start = Trainer(GenerationTask(pconfig.generation_config(one), device="cpu").init_params(0), one)
+        start_ckpt = start.save("start", start.init_state())
 
-    train = common + ["--mode", "train", "--num_epochs", "2", "--restore_checkpoint", start_ckpt]
-    with cf.ThreadPoolExecutor(1) as pool:
-        port = pool.submit(pmain.main, train + ["--device", "cpu", "--exp_name", "port"])
-        jmain.main(train + ["--exp_name", "jax"])
-        assert port.result() == 0
-    out = {}
-    with cf.ThreadPoolExecutor(1) as pool:
-        waits = []
-        for name in ("port", "jax"):
-            run_dir = os.path.join(ckpt_dir, name)
-            best = BestTracker.read_best_epoch(run_dir)
-            out[name] = dict(dir=run_dir, best=best)
-            test = common + ["--mode", "test", "--exp_name", name, "--restore_checkpoint",
-                             os.path.join(run_dir, f"epoch_{best}.ckpt")]
-            if name == "port":
-                waits.append(pool.submit(pmain.main, test + ["--device", "cpu"]))
-            else:
-                jmain.main(test)
-        assert all(w.result() == 0 for w in waits)
-    yield out
-    shutil.rmtree(tmp, ignore_errors=True)  # the checkpoints: hundreds of MB
+        train = common + ["--mode", "train", "--num_epochs", "2", "--restore_checkpoint", start_ckpt]
+        with cf.ThreadPoolExecutor(1) as pool:
+            port = pool.submit(pmain.main, train + ["--device", "cpu", "--exp_name", "port"])
+            jmain.main(train + ["--exp_name", "jax"])
+            assert port.result() == 0
+        out = {}
+        with cf.ThreadPoolExecutor(1) as pool:
+            waits = []
+            for name in ("port", "jax"):
+                run_dir = os.path.join(ckpt_dir, name)
+                best = BestTracker.read_best_epoch(run_dir)
+                out[name] = dict(dir=run_dir, best=best)
+                test = common + ["--mode", "test", "--exp_name", name, "--restore_checkpoint",
+                                 os.path.join(run_dir, f"epoch_{best}.ckpt")]
+                if name == "port":
+                    waits.append(pool.submit(pmain.main, test + ["--device", "cpu"]))
+                else:
+                    jmain.main(test)
+            assert all(w.result() == 0 for w in waits)
+        yield out
 
 
 def test_train_on_two_ranks_matches_jax_cli(runs):
@@ -112,13 +112,16 @@ def test_devices_the_cli_takes(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert pmain.num_devices(parse(gen), "cuda") == 4  # unset: every visible GPU for the generation task
     assert pmain.num_devices(parse(gen), "cpu") == 1
-    assert pmain.num_devices(parse(["--embedding", "1"]), "cuda") == 1  # the others take one
+    # so do the embedding and reconstruction tasks; the others take one
+    assert pmain.num_devices(parse(["--embedding", "1"]), "cuda") == 4
+    assert pmain.num_devices(parse(["--model", "UNet", "--encoder_type", "Audio"]), "cuda") == 4
+    assert pmain.num_devices(parse(["--embedding", "1", "--project", "1"]), "cuda") == 1
     assert pmain.num_devices(parse(gen + ["--num_devices", "3"]), "cuda") == 3
     with pytest.raises(RuntimeError, match="5 ranks need 5 CUDA devices; 4 are visible"):
         pmain.main(gen + ["--num_devices", "5", "--train_file", "t", "--valid_file", "v"])
     # what waits is refused before any rank starts
-    with pytest.raises(NotImplementedError, match=r"embedding family trains on one device only.*item 8\.1"):
-        pmain.main(["--embedding", "1", "--num_devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=r"projection task trains on one device only.*item 8\.1"):
+        pmain.main(["--embedding", "1", "--project", "1", "--num_devices", "2", "--device", "cpu"])
 
 
 def test_torchrun_environment(monkeypatch):

@@ -49,6 +49,7 @@ from task_parity import (
 )
 from test_torch_embed_models import perturb
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 WIRINGS = {"video": dict(encoder_type="Video"), "audio": dict(encoder_type="Audio"), "fusion": dict(fusion=True),
            "l2": dict(encoder_type="Video", l2=True)}

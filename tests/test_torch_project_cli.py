@@ -21,7 +21,6 @@ uses two threads.
 
 import json
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -42,6 +41,7 @@ from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTa
 from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig, ReconstructTask
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 VAES = ("acoustic", "video", "audio")
 
@@ -65,26 +65,25 @@ def _same_vaes(got, want, models=VAES):
 def run(tmp_path_factory):
     """Shards of two classes cut to 2 training, 2 validation and 4 test
     windows, and a two-epoch projection run of batches of 2."""
-    tmp = tmp_path_factory.mktemp("project_cli")
-    full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
-    lists = {}
-    for split, keep in (("training", slice(0, 8, 4)), ("validation", slice(1, 8, 4)), ("testing", slice(0, 8, 2))):
-        lists[split] = str(tmp / "ds" / "lists" / f"cut_{split}.txt")
-        with open(full[split]) as f:
-            files = f.read().split()[keep]
-        with open(lists[split], "w") as f:
-            f.write("\n".join(files) + "\n")
-    flags = ["--embedding", "1", "--project", "1", "--encoder_type", "Video", "--compute_dtype", "float32",
-             "--batch_size", "2", "--train_file", lists["training"], "--valid_file", lists["validation"],
-             "--test_file", lists["testing"], "--checkpoint_dir", str(tmp / "runs"), "--exp_name", "project"]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)  # beside the other test workers
-    assert pmain.main(flags + ["--device", "cpu", "--mode", "train", "--num_epochs", "2"]) == 0
-    run_dir = tmp / "runs" / "project"
-    best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
-    yield tmp, flags, run_dir, best
-    torch.set_num_threads(threads)
-    shutil.rmtree(tmp, ignore_errors=True)  # full-width checkpoints: about 1 GB each
+    with module_dir(tmp_path_factory, "project_cli", need_mb=3000) as tmp:  # full-width checkpoints: about 1 GB each
+        full = write_synthetic_dataset(str(tmp / "ds"), num_classes=2, videos_per_class=2, seconds_per_video=2)
+        lists = {}
+        for split, keep in (("training", slice(0, 8, 4)), ("validation", slice(1, 8, 4)), ("testing", slice(0, 8, 2))):
+            lists[split] = str(tmp / "ds" / "lists" / f"cut_{split}.txt")
+            with open(full[split]) as f:
+                files = f.read().split()[keep]
+            with open(lists[split], "w") as f:
+                f.write("\n".join(files) + "\n")
+        flags = ["--embedding", "1", "--project", "1", "--encoder_type", "Video", "--compute_dtype", "float32",
+                 "--batch_size", "2", "--train_file", lists["training"], "--valid_file", lists["validation"],
+                 "--test_file", lists["testing"], "--checkpoint_dir", str(tmp / "runs"), "--exp_name", "project"]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)  # beside the other test workers
+        assert pmain.main(flags + ["--device", "cpu", "--mode", "train", "--num_epochs", "2"]) == 0
+        run_dir = tmp / "runs" / "project"
+        best = run_dir / f"epoch_{BestTracker.read_best_epoch(str(run_dir))}.ckpt"
+        yield tmp, flags, run_dir, best
+        torch.set_num_threads(threads)
 
 
 def test_train_and_test_from_the_command_line(run):

@@ -25,6 +25,7 @@ from acoustic_image_generation_tpu.utils import xlsx as jxlsx
 from acoustic_image_generation_tpu_torch.evaluation import aggregate, distance, export, knn, retrieve
 from acoustic_image_generation_tpu_torch.utils import xlsx
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def _case(seed, n_gallery, n_query, dim, classes):

@@ -24,25 +24,27 @@ from acoustic_image_generation_tpu_torch.core.server import ArtifactServer, decl
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     """A DualCamNet artifact behind a server started from its directory,
     and a generation artifact behind one started from the loaded model."""
-    cls_dir = tmp_path_factory.mktemp("cls")
-    serving.export_classification(ClassificationTask(ClassifyConfig(compute_dtype="float32"), device="cpu")
-                                  .init_params(0), str(cls_dir))
-    gen_dir = tmp_path_factory.mktemp("gen")
-    serving.export_generation(GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1), compute_dtype="float32"),
-                                             device="cpu").init_params(1), str(gen_dir), energy=True)
-    cls = ArtifactServer(str(cls_dir), device="cpu")
-    gen = ArtifactServer(serving.load_artifact(str(gen_dir), device="cpu"))
-    for server in (cls, gen):
-        server.start()
-    yield cls, gen
-    for server in (cls, gen):
-        server.shutdown()
+    with module_dir(tmp_path_factory, "served") as tmp:
+        cls_dir, gen_dir = tmp / "cls", tmp / "gen"
+        serving.export_classification(ClassificationTask(ClassifyConfig(compute_dtype="float32"), device="cpu")
+                                      .init_params(0), str(cls_dir))
+        serving.export_generation(GenerationTask(GenerationConfig(resnet_units=(1, 1, 1, 1),
+                                                                  compute_dtype="float32"),
+                                                 device="cpu").init_params(1), str(gen_dir), energy=True)
+        cls = ArtifactServer(str(cls_dir), device="cpu")
+        gen = ArtifactServer(serving.load_artifact(str(gen_dir), device="cpu"))
+        for server in (cls, gen):
+            server.start()
+        yield cls, gen
+        for server in (cls, gen):
+            server.shutdown()
 
 
 def _url(server, path=""):

@@ -52,6 +52,7 @@ from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTa
 from acoustic_image_generation_tpu_torch.train.project import ProjectConfig, ProjectTask
 from task_parity import rel, with_normals
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 UNITS = (1, 1, 1, 1)
 # the keys a port manifest adds to JAX's, or fills in its own way
@@ -111,14 +112,15 @@ def generation(tmp_path_factory):
     JAX export of the same weights (external weights, for the CPU)."""
     task = perturbed(GenerationTask(GenerationConfig(resnet_units=UNITS, compute_dtype="float32"),
                                     device="cpu").init_params(0), 1)
-    path = tmp_path_factory.mktemp("gen")
-    manifest, model, params, stats = exported(task, path, serving.export_generation, energy=True)
-    jtask = JaxGeneration(jax_cfg(resnet_units=UNITS))
-    jax_manifest = jserving.export_generation(jtask, types.SimpleNamespace(params=params, batch_stats=stats),
-                                              str(tmp_path_factory.mktemp("jax_gen")), energy=True,
-                                              platforms=("cpu",), external_weights=True)
-    return types.SimpleNamespace(task=task, path=path, manifest=manifest, model=model, params=params, stats=stats,
-                                 jtask=jtask, jax_manifest=jax_manifest)
+    with module_dir(tmp_path_factory, "gen") as tmp:
+        path = tmp / "port"
+        manifest, model, params, stats = exported(task, path, serving.export_generation, energy=True)
+        jtask = JaxGeneration(jax_cfg(resnet_units=UNITS))
+        jax_manifest = jserving.export_generation(jtask, types.SimpleNamespace(params=params, batch_stats=stats),
+                                                  str(tmp / "jax"), energy=True, platforms=("cpu",),
+                                                  external_weights=True)
+        yield types.SimpleNamespace(task=task, path=path, manifest=manifest, model=model, params=params,
+                                    stats=stats, jtask=jtask, jax_manifest=jax_manifest)
 
 
 def test_generation_matches_jax(generation):
@@ -261,9 +263,9 @@ def test_joint_matches_jax(vaes, tmp_path):
 @pytest.fixture(scope="module")
 def small_artifact(tmp_path_factory):
     task = ClassificationTask(ClassifyConfig(compute_dtype="float32"), device="cpu").init_params(0)
-    path = tmp_path_factory.mktemp("cls")
-    serving.export_classification(task, str(path))
-    return path
+    with module_dir(tmp_path_factory, "cls") as path:
+        serving.export_classification(task, str(path))
+        yield path
 
 
 def _edited(src, dst, **changes):

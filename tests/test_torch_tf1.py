@@ -30,6 +30,7 @@ from acoustic_image_generation_tpu_torch.train import checkpoint, warmstart  # n
 from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask  # noqa: E402
 from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask  # noqa: E402
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer  # noqa: E402
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 tf1 = tf.compat.v1
 
@@ -98,15 +99,15 @@ def assert_bits(got: dict, want: dict):
 def written(tmp_path_factory):
     """TF-written files: V2, V1 (no bf16: TF's V1 writer refuses it) and a
     V2 checkpoint in two shards."""
-    root = tmp_path_factory.mktemp("tf1")
-    values = _values(np.random.default_rng(0))
-    v1 = {k: v for k, v in values.items() if not k.endswith("bf16")}
-    paths = {
-        "v2": tf_save(str(root / "v2" / "m.ckpt"), values),
-        "v1": tf_save(str(root / "v1" / "m.ckpt"), v1, version=tf1.train.SaverDef.V1),
-        "sharded": tf_save(str(root / "sh" / "m.ckpt"), values, shards=2),
-    }
-    return paths, values
+    with module_dir(tmp_path_factory, "tf1") as root:
+        values = _values(np.random.default_rng(0))
+        v1 = {k: v for k, v in values.items() if not k.endswith("bf16")}
+        paths = {
+            "v2": tf_save(str(root / "v2" / "m.ckpt"), values),
+            "v1": tf_save(str(root / "v1" / "m.ckpt"), v1, version=tf1.train.SaverDef.V1),
+            "sharded": tf_save(str(root / "sh" / "m.ckpt"), values, shards=2),
+        }
+        yield paths, values
 
 
 @pytest.mark.parametrize("kind", ["v2", "v1", "sharded"])

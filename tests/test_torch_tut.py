@@ -12,7 +12,6 @@ keywords and the ``stft`` kernel's wrapper refusing any other geometry).
 """
 
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +25,7 @@ from acoustic_image_generation_tpu_torch.data import tfrecord
 from acoustic_image_generation_tpu_torch.data import tut
 from acoustic_image_generation_tpu_torch.dsp import spectrogram as spec
 from torch_threads import few_torch_threads  # noqa: F401
+from torch_tmp import module_dir
 
 PEAK_TOL = 1e-5
 SAMPLE_RATE = tut.SAMPLE_RATE
@@ -39,21 +39,20 @@ def _peak_err(got, want) -> float:
 def shards(tmp_path_factory):
     """Two shards of 5 TUT records (10 s each, 15 classes) and a list file
     naming them; the global statistics of ``normalize=True``."""
-    root = tmp_path_factory.mktemp("torch_tut")
-    rng = np.random.default_rng(0)
-    paths = []
-    for s in range(2):
-        records = [jtut.encode_tut_record(rng.standard_normal(10 * SAMPLE_RATE).astype(np.float32),
-                                          int(rng.integers(15))) for _ in range(5 - 2 * s)]
-        paths.append(str(root / "shards" / f"tut_{s}.tfrecord"))
-        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
-        tfrecord.write_records(paths[-1], records)
-    (root / "list.txt").write_text("\n".join(paths) + "\n")
-    (root / "stats").mkdir()
-    np.save(root / "stats" / "global_mean.npy", np.float32(0.25))
-    np.save(root / "stats" / "global_std_dev.npy", np.float32(1.5))
-    yield root
-    shutil.rmtree(root, ignore_errors=True)
+    with module_dir(tmp_path_factory, "torch_tut") as root:
+        rng = np.random.default_rng(0)
+        paths = []
+        for s in range(2):
+            records = [jtut.encode_tut_record(rng.standard_normal(10 * SAMPLE_RATE).astype(np.float32),
+                                              int(rng.integers(15))) for _ in range(5 - 2 * s)]
+            paths.append(str(root / "shards" / f"tut_{s}.tfrecord"))
+            os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+            tfrecord.write_records(paths[-1], records)
+        (root / "list.txt").write_text("\n".join(paths) + "\n")
+        (root / "stats").mkdir()
+        np.save(root / "stats" / "global_mean.npy", np.float32(0.25))
+        np.save(root / "stats" / "global_std_dev.npy", np.float32(1.5))
+        yield root
 
 
 def test_constants_match_jax():
