@@ -33,16 +33,14 @@ One flag sets a ``DataConfig`` field that JAX's parser leaves at its
 default: ``--normalize_spectrogram 1`` (the embedding task's z-normalized
 spectrograms, with the statistics of ``stats2s`` beside ``--train_file``).
 
-Devices, as JAX's ``--num_devices`` (its one process over N devices): the
-generation task, the embedding family (every variant) and the
-reconstruction task (every ``--encoder_type``) train and test on N ranks,
-one process a device (``parallel/mesh.py``), each rank on its rows of
-every ``--batch_size`` batch. ``--num_devices N > 1`` starts the N ranks
-itself (``cuda:0`` to ``cuda:N-1`` over NCCL, or N CPU ranks over gloo with
-``--device cpu``; more than the visible GPUs raise); unset, it takes every
-visible GPU for those tasks, as JAX's ``make_mesh`` takes every device, and
-one device for the other tasks, which raise when asked for more
-(``ROADMAP.md`` Queue 1, item 8.1, second half). Under ``torchrun``
+Devices, as JAX's ``--num_devices`` (its one process over N devices): every
+task trains and tests on N ranks, one process a device
+(``parallel/mesh.py``), each rank on its rows of every ``--batch_size``
+batch. ``--num_devices N > 1`` starts the N ranks itself (``cuda:0`` to
+``cuda:N-1`` over NCCL, or N CPU ranks over gloo with ``--device cpu``; more
+than the visible GPUs raise); unset, it takes every visible GPU on
+``cuda``, as JAX's ``make_mesh`` takes every device, and one device on the
+CPU. Under ``torchrun``
 each process is the rank its environment names. Each rank's loader
 decodes only its rows: a rank is one process, so the host sharding that
 JAX's ``--host_shard 1`` asks of a multi-host run is the port's one layout,
@@ -236,17 +234,6 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-def takes_devices(config: ExperimentConfig) -> bool:
-    """Whether the experiment's task trains on more than one device: its
-    configuration is taken at two (a task whose ``one_device_reason`` is
-    not None raises there)."""
-    try:
-        task_config(dataclasses.replace(config, parallel=ParallelConfig(num_devices=2)))
-    except NotImplementedError:
-        return False
-    return True
-
-
 def task_config(config: ExperimentConfig):
     """``(the task's module and class name, its configuration)``; the
     configuration functions raise for what the port does not run."""
@@ -295,11 +282,11 @@ def make_loader(config: ExperimentConfig, split: str):
 
 
 def num_devices(config: ExperimentConfig, device: str) -> int:
-    """``parallel.num_devices``, or unset: every visible GPU on ``cuda`` for
-    a task that takes more than one device, else one."""
+    """``parallel.num_devices``, or unset: every visible GPU on ``cuda``,
+    else one."""
     if config.parallel.num_devices is not None:
         return config.parallel.num_devices
-    if device == "cuda" and takes_devices(config) and torch.cuda.is_available():
+    if device == "cuda" and torch.cuda.is_available():
         return torch.cuda.device_count()
     return 1
 

@@ -17,10 +17,9 @@ Fields the port reads as JAX does: the data fields the loader takes
 only to carry them: the TPU-only ``pallas_mfcc`` and ``fused_conv`` (on the
 card the port always runs the MFCC frontend and the generator's conv pairs
 on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``'s
-``num_devices`` and ``fsdp`` train the generation task on that many ranks
+``num_devices`` and ``fsdp`` train every task on that many ranks
 (``parallel/mesh.py``; ``cli/main.py`` starts them). ``tensor_parallel >
-1`` raises, and so do the other tasks at more than one device or with
-FSDP, each with its reason (``ROADMAP.md`` Queue 1, item 8.1, second half).
+1`` raises (``ROADMAP.md`` Queue 1, item 8.1.2).
 """
 
 from __future__ import annotations
@@ -31,12 +30,12 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
-from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
-from acoustic_image_generation_tpu_torch.train.generation import CORRESPONDENCE_ONE_DEVICE, GenerationConfig
-from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTask
-from acoustic_image_generation_tpu_torch.train.project import ProjectConfig, ProjectTask
-from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig, ReconstructTask
+from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig
+from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig
+from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig
+from acoustic_image_generation_tpu_torch.train.joint import JointConfig
+from acoustic_image_generation_tpu_torch.train.project import ProjectConfig
+from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig
 
 
 @dataclass(frozen=True)
@@ -202,28 +201,17 @@ def _build(cls, values: dict):
     return cls(**{k: tuple(v) if k in tuples and isinstance(v, list) else v for k, v in values.items()})
 
 
-SECOND_HALF = "ROADMAP.md Queue 1, item 8.1, second half"
-
-
 def refuse_tensor_parallel(config: ExperimentConfig) -> None:
     if config.parallel.tensor_parallel > 1:
-        raise NotImplementedError(f"tensor_parallel > 1 is not ported: the port splits a task's batch (num_devices) "
-                                  f"and shards its weights (fsdp) only ({SECOND_HALF})")
-
-
-def parallel(config: ExperimentConfig) -> bool:
-    """Whether the experiment asks for more than one device or for FSDP."""
-    return (config.parallel.num_devices or 1) > 1 or config.parallel.fsdp
+        raise NotImplementedError("tensor_parallel > 1 is not ported: the port splits a task's batch (num_devices) "
+                                  "and shards its weights (fsdp) only (ROADMAP.md Queue 1, item 8.1.2)")
 
 
 def generation_config(config: ExperimentConfig) -> GenerationConfig:
     """The port's ``GenerationConfig`` of an experiment. Raises for what
-    the port does not run: tensor parallelism, and the correspondence
-    augmentation on more than one device. ``optim.tf1_adam`` and
+    the port does not run: tensor parallelism. ``optim.tf1_adam`` and
     ``parallel`` are the trainer's (``Trainer``)."""
     refuse_tensor_parallel(config)
-    if parallel(config) and config.data.correspondence:
-        raise NotImplementedError(f"{CORRESPONDENCE_ONE_DEVICE} ({SECOND_HALF})")
     m, o = config.model, config.optim
     return GenerationConfig(
         num_skip_conn=m.num_skip_conn,
@@ -255,8 +243,7 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
 def classify_config(config: ExperimentConfig, *, generated: bool = False) -> ClassifyConfig:
     """The port's ``ClassifyConfig`` of an experiment (classes and channels
     by ``data.datatype``); ``generated`` adds the frozen generator's
-    ``GenerationConfig``. Raises at more than one device (``one_device``)."""
-    one_device(config, ClassificationTask)
+    ``GenerationConfig``. Raises for what ``generation_config`` refuses."""
     gen = generation_config(config)
     d = config.data
     return ClassifyConfig(
@@ -279,9 +266,9 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     ``data.datatype`` (13 for music), ``model.num_class`` latents, the
     variant flags, and the spectrogram statistics' directory (``data.
     stats_dir``, else ``stats2s`` beside the training list, as JAX's
-    ``_load_spec_stats``). Takes more than one device and FSDP; raises for
-    what ``generation_config`` refuses (``one_device``)."""
-    one_device(config, EmbedTask)
+    ``_load_spec_stats``). Raises for what ``generation_config``
+    refuses."""
+    generation_config(config)
     d, m, o = config.data, config.model, config.optim
     stats_dir = d.stats_dir
     if stats_dir is None and d.train_file:
@@ -303,43 +290,31 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     )
 
 
-def one_device(config: ExperimentConfig, task_class) -> None:
-    """Raise, with the task's ``one_device_reason``, when a task that trains
-    on one device only (its reason is not None) is asked for more or for
-    FSDP; and for what ``generation_config`` refuses."""
-    if parallel(config) and task_class.one_device_reason is not None:
-        raise NotImplementedError(f"{task_class.one_device_reason} ({SECOND_HALF})")
+def _common(config: ExperimentConfig) -> dict:
+    """The fields every task configuration takes; raises for what
+    ``generation_config`` refuses."""
     generation_config(config)
-
-
-def _common(config: ExperimentConfig, task_class) -> dict:
-    """The fields every task configuration takes, after ``one_device``."""
-    one_device(config, task_class)
     return dict(num_channels=config.data.num_channels, compute_dtype=config.parallel.compute_dtype,
                 learning_rate=config.optim.learning_rate, seed=config.run.seed)
 
 
 def reconstruct_config(config: ExperimentConfig) -> ReconstructConfig:
     """The port's ``ReconstructConfig`` of an experiment (``model.
-    encoder_type``; 13 acoustic channels for music). Takes more than one
-    device and FSDP; raises for what ``generation_config`` refuses
-    (``one_device``)."""
-    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config, ReconstructTask))
+    encoder_type``; 13 acoustic channels for music)."""
+    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config))
 
 
 def project_config(config: ExperimentConfig) -> ProjectConfig:
     """The port's ``ProjectConfig`` of an experiment (``model.encoder_type``,
-    ``fusion``, ``l2``, ``optim.margin``). Raises at more than one device
-    (``one_device``)."""
+    ``fusion``, ``l2``, ``optim.margin``)."""
     m = config.model
     return ProjectConfig(encoder_type=m.encoder_type, fusion=m.fusion, l2=m.l2, margin=config.optim.margin,
-                         **_common(config, ProjectTask))
+                         **_common(config))
 
 
 def joint_config(config: ExperimentConfig) -> JointConfig:
     """The port's ``JointConfig`` of an experiment (``model.fusion``,
-    ``onlyaudiovideo``, ``moddrop``). Raises at more than one device
-    (``one_device``)."""
+    ``onlyaudiovideo``, ``moddrop``)."""
     m = config.model
     return JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop,
-                       **_common(config, JointTask))
+                       **_common(config))

@@ -172,8 +172,7 @@ def export_generation(task: GenerationTask, out_dir: str, *, energy: bool = Fals
         raise ValueError("energy inversion is defined for 12-channel MFCC images")
     if spatial_shards > 1:
         raise NotImplementedError("spatial_shards > 1 (a request's image rows split over devices) is not ported: "
-                                  "the port splits the training batch of the generation, embedding and reconstruction "
-                                  "tasks only (ROADMAP.md Queue 1, item 8.1, second half)")
+                                  "the port splits a task's training batch only (ROADMAP.md Queue 1, item 8.1.3)")
     int8 = task.cfg.trunk_quant == "int8"
     if int8 and task.cfg.fused_qgemm:
         raise ValueError(
@@ -401,7 +400,7 @@ def load_artifact(art_dir: str, device: str | torch.device | None = None) -> Ser
         raise RuntimeError(f"artifact exported for {manifest.get('platforms')}, runtime is {dev.type!r}")
     if manifest.get("spatial_shards", 1) > 1:
         raise NotImplementedError("spatially sharded artifacts are not ported: the port splits the training "
-                                  "batch only (ROADMAP.md Queue 1, item 8.1, second half)")
+                                  "batch only (ROADMAP.md Queue 1, item 8.1.3)")
     with open(os.path.join(art_dir, WEIGHTS), "rb") as f:
         blob = f.read()
     digest = hashlib.sha256(blob).hexdigest()

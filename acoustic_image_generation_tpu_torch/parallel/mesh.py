@@ -25,7 +25,8 @@ reported metrics and the eval sums (``train/trainer.py``).
   gradient, as JAX's transpose of a ``psum`` does) and ``all_reduce_``.
 - ``all_gather_rows`` (differentiable): every rank's rows in rank order, the
   global batch of a loss term that couples rows (the embedding family's
-  triplet mining and NCA). Every rank then computes the same global term;
+  triplet mining and NCA, the projection's triplet, the music
+  correspondence shuffle). Every rank then computes the same global term;
   the backward sums the ranks' gradients and keeps this rank's rows (a
   reduce-scatter, the transpose of JAX's all-gather), so that DDP's average
   of the ranks' gradients is the term's gradient, as it is for the BN
@@ -38,7 +39,7 @@ With no group (``world() == 1``) every helper is the identity and the
 modules take their one-device paths, so one device computes what it
 computed before. ``tp_sharding`` (``tensor_parallel > 1``) and
 ``spatial_sharding`` (``spatial_shards > 1``) are not ported: they raise
-where they are asked for (``ROADMAP.md`` Queue 1, item 8.1, second half).
+where they are asked for (``ROADMAP.md`` Queue 1, items 8.1.2 and 8.1.3).
 """
 
 from __future__ import annotations

@@ -24,6 +24,13 @@ The parameters are f32 masters on one device, computing in the compute
 dtype; they come from ``init_params(seed)`` or ``bridge.load_flax``
 (``{"dualcamnet": ...}``, plus ``"resnet"`` and ``"generator"`` for the
 generated task).
+
+On more than one rank (``parallel/mesh.py``) each rank holds its clips of
+the global batch (doubled on the rank by the correspondence augmentation):
+the cross-entropy and the accuracy are rank means over equal clips, which
+the trainer averages, and ``evaluate`` sums the per-clip terms and counts
+over the ranks. The generated task's VAE noise is drawn at the global frame
+count and cut to the rank's rows (``global_noise``).
 """
 
 from __future__ import annotations
@@ -75,10 +82,6 @@ class ClassifyConfig:
 class ClassificationTask(nn.Module):
     eval_metric = "accuracy"
     eval_mode = "max"
-    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
-    one_device_reason = ("the classification family trains on one device only: DualCamNet's per-clip loss and "
-                         "accuracy, the generated classifier's VAE noise and the correspondence shuffle are not yet "
-                         "split over ranks")
     reads_video = False  # no input of DualCamNet's: the trainer's batches skip it
 
     def __init__(self, config: ClassifyConfig = ClassifyConfig(), *, device=None):
@@ -107,6 +110,15 @@ class ClassificationTask(nn.Module):
         init_modules(self, seed)
         return self
 
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each):
+        DualCamNet."""
+        return (self.dualcamnet,)
+
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
+        """None: DualCamNet on real or tiled-MFCC images draws nothing."""
+        return None
+
     def inputs(self, batch: Batch) -> torch.Tensor:
         if self.cfg.mfccmap:
             return tile_mfccmap(batch.mfcc)
@@ -133,6 +145,11 @@ class ClassificationTask(nn.Module):
         labels = self.labels(batch)
         ce = softmax_cross_entropy(labels, logits)
         return ce, {"loss": ce, "cross_loss": ce, "accuracy": accuracy(logits, labels).detach()}
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def eval_losses(self, batch: Batch, *, eps=None, generator=None, **unused):
         """Per-clip ``({"cross_loss": (N,), "accuracy": (N,) 0/1}, logits
@@ -168,6 +185,11 @@ class GeneratedClassificationTask(ClassificationTask):
         ``param_labels``)."""
         return {name: "train" if name.split(".")[0] == "dualcamnet" else "frozen"
                 for name, _ in self.named_parameters()}
+
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
+        """The frozen generator's VAE noise for a global batch of ``frames``
+        frames, as one device draws it."""
+        return self.generation.global_noise(frames, generator)
 
     def _images(self, batch: Batch, eps=None, generator=None) -> torch.Tensor:
         """The generator's images (N*F, 36, 48, 12) f32: eval-mode trunk and

@@ -112,7 +112,6 @@ class EmbedTask(nn.Module):
     reads_mfcc = False  # no VAE reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
-    one_device_reason = None  # it trains on more than one rank
 
     def __init__(self, config: EmbedConfig = EmbedConfig(), *, device=None):
         super().__init__()
@@ -172,7 +171,7 @@ class EmbedTask(nn.Module):
             raise ValueError("the embedding loss samples the latent noise: pass eps or generator")
         return torch.randn((seconds, self.cfg.latent_dim), generator=generator, device=self.device)
 
-    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor:
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor:
         """The step's ``eps`` for a global batch of ``frames`` frames, as one
         device draws it."""
         return self.draw_noise(frames // FRAMES_PER_SECOND, generator)

@@ -103,11 +103,6 @@ class GenerationConfig:
     cache_features_dtype: str = "bf16"  # bf16: what the trunk produces | f8_e4m3
 
 
-# why a generation task with the correspondence augmentation trains on one device only
-CORRESPONDENCE_ONE_DEVICE = ("the correspondence augmentation trains on one device only: it doubles each rank's rows, "
-                             "so its halves are not the global batch's")
-
-
 class GenerationTask(nn.Module):
     reads_mfcc = True  # the generator's input: the trainer's batches compute it
     eval_metric = "mse"  # the eval loss that gates the best epoch
@@ -136,21 +131,16 @@ class GenerationTask(nn.Module):
         for name, p in self.named_parameters():
             p.requires_grad_(labels[name] == "train")
 
-    @property
-    def one_device_reason(self) -> str | None:
-        """Why the task trains on one device only, or None: it takes more
-        unless the correspondence augmentation is on. (The other tasks name
-        theirs as a class attribute.)"""
-        return CORRESPONDENCE_ONE_DEVICE if self.cfg.correspondence else None
-
     def trained_modules(self) -> tuple[nn.Module, ...]:
         """The modules whose parameters train (FSDP shards each): ``conv_map``
         and the generator."""
         return self.resnet.conv_map, self.generator
 
-    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor | None:
-        """The VAE noise of a global batch of ``frames`` frames, as one device
-        draws it; None for the deterministic AE, which draws nothing."""
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
+        """The VAE noise of a global batch of ``frames`` frames (the doubled
+        batch's with the correspondence augmentation), as one device draws
+        it, in a train step and in eval alike; None for the deterministic AE,
+        which draws nothing."""
         if self.cfg.ae:
             return None
         return torch.randn((frames, self.generator.vae.latent_dim), generator=generator, device=self.device)

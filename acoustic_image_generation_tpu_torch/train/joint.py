@@ -31,6 +31,14 @@ acoustic one alone where only the acoustic stage 2 runs), and ``moddrop``
 the keep flag; or the step's generator draws the moddrop uniform, then the
 stage-2 noise in that order. Per second: the first acoustic and video frame
 and the STFT magnitude resized to 193x257.
+
+On more than one rank (``parallel/mesh.py``) each rank holds its seconds
+of the global batch. The trainer draws the step's noise as one device
+does (``global_noise``): the moddrop flag, one draw for the whole batch,
+which every rank keeps whole (``shared_draws``), then the stage-2 noise at
+the global shape, of which each rank keeps its rows. The loss terms are
+rank means over equal rows, which the trainer averages; no trained layer
+couples rows.
 """
 
 from __future__ import annotations
@@ -79,9 +87,7 @@ class JointTask(nn.Module):
     reads_video = True
     eval_metric = "mse"
     eval_mode = "min"
-    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
-    one_device_reason = ("the joint task trains on one device only: the shared moddrop draw and the stage-2 noise "
-                         "cover the global batch")
+    shared_draws = ("moddrop",)  # global_noise's draws that are not per row
 
     def __init__(self, config: JointConfig = JointConfig(), *, device=None):
         super().__init__()
@@ -112,6 +118,20 @@ class JointTask(nn.Module):
         from a CPU generator seeded with ``seed``."""
         init_modules(self, seed)
         return self
+
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each): the trained
+        associator."""
+        return (getattr(self, self.trained),)
+
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> dict:
+        """The step's draws for a global batch of ``frames`` frames, in one
+        device's order: ``moddrop``, the keep flag (a train step with
+        ``moddrop``), then the stage-2 noise (the acoustic one alone where
+        only the acoustic stage 2 runs: ``onlyaudiovideo``, or eval)."""
+        out = {"moddrop": self._keep(None, generator)} if self.cfg.moddrop and train else {}
+        names = tuple(LATENTS) if train and not self.cfg.onlyaudiovideo else ("acoustic",)
+        return {**out, **self._noise(frames // FRAMES_PER_SECOND, names, None, generator)}
 
     def inputs(self, batch: Batch):
         """Per second: the first acoustic frame (S,36,48,C; None without the
@@ -166,10 +186,12 @@ class JointTask(nn.Module):
     def loss(self, batch: Batch, *, train: bool = True, eps=None, generator=None, moddrop=None, **unused):
         """Forward and objective, ``(total, metrics)`` in f32: ``loss``,
         ``mse``, ``huber``, ``latent_loss`` (and ``feature_l2`` with
-        ``onlyaudiovideo``). ``moddrop`` (the keep flag) replaces the
-        draw."""
+        ``onlyaudiovideo``). ``moddrop`` (the keep flag, or ``eps``'s
+        ``moddrop``) replaces the draw."""
         inputs = self.inputs(batch)
         ac, spec, video = inputs
+        if moddrop is None and eps is not None:
+            moddrop = eps.get("moddrop")
         keep = self._keep(moddrop, generator) if self.cfg.moddrop and train else None
         _, fused, pred = self._fuse(inputs, keep)
         seconds = ac.shape[0]
@@ -191,6 +213,11 @@ class JointTask(nn.Module):
         latent = torch.mean(sum(kl_diag_gaussian(o.mean, o.std) for _, o in pairs)) / 1e6
         total = mse + hub + latent
         return total, {"loss": total, "mse": mse, "huber": hub, "latent_loss": latent}
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def embeddings(self, batch: Batch, *, use_mean: bool = False, eps=None, generator=None) -> dict:
         """Per-second latents (f32) of the VAE heads, eval mode, no decoder:

@@ -34,6 +34,16 @@ generator in that order. Per second: the first acoustic and video frame
 of each second, and the second's STFT magnitude bilinearly resized to
 193x257 (the ``Video`` wiring reads no spectrogram and skips the ``stft``;
 the ``Audio`` wiring reads no video).
+
+On more than one rank (``parallel/mesh.py``) each rank holds its seconds
+of the global batch, and what couples rows covers the global batch, as in
+JAX's one program over its ``data`` mesh: the audio encoder associator's
+train-mode BN statistics (``models/layers.py``); ``triplet_all`` over
+``z_ac``, each associator's sample, the labels and the scenarios, gathered
+by ``mesh.all_gather_rows``; the two noise draws, which the trainer draws
+at the global shape (``global_noise``) and cuts to the rank's rows. The
+reconstruction, KL and ``l2`` terms are rank means over equal rows, which
+the trainer averages.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from acoustic_image_generation_tpu_torch.models.unet_ac import UNetAcoustic
 from acoustic_image_generation_tpu_torch.models.unet_sound import UNetSound
 from acoustic_image_generation_tpu_torch.models.unet_video import UNetVideo
 from acoustic_image_generation_tpu_torch.ops.stft import stft
+from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train.embed import _DTYPES, EmbedTask
 
 AUDIO_ENC_WEIGHT_DECAY = 8e-5
@@ -96,9 +107,6 @@ class ProjectTask(nn.Module):
     reads_mfcc = False
     eval_metric = "mse"
     eval_mode = "min"
-    # why the task trains on one device only (None where it takes more; ROADMAP.md Queue 1, item 8.1)
-    one_device_reason = ("the projection task trains on one device only: the batch-hard triplet mining covers the "
-                         "global batch, and the audio encoder's BN trains")
 
     def __init__(self, config: ProjectConfig = ProjectConfig(), *, device=None):
         super().__init__()
@@ -135,6 +143,18 @@ class ProjectTask(nn.Module):
         from a CPU generator seeded with ``seed``."""
         init_modules(self, seed)
         return self
+
+    def trained_modules(self) -> tuple[nn.Module, ...]:
+        """The modules whose parameters train (FSDP shards each): the
+        wiring's associators."""
+        return tuple(m for n, m in self.named_children() if n.startswith("assoc"))
+
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> dict:
+        """The step's noise for a global batch of ``frames`` frames, as one
+        device draws it: ``latent``, then (a train step without ``l2``)
+        ``triplet``."""
+        names = ("latent", "triplet") if train and not self.cfg.l2 else ("latent",)
+        return self._noise(frames // FRAMES_PER_SECOND, None, generator, names)
 
     def inputs(self, batch: Batch):
         """Per second: the first acoustic frame (S,36,48,C; None without the
@@ -196,11 +216,13 @@ class ProjectTask(nn.Module):
         if self.cfg.l2:
             metric_term = metrics["l2_latent"] = mse_tf(out.mean, mean) + mse_tf(out.std, std)
         else:
+            # the triplet mining couples rows: its latents, labels and scenarios cover the global batch
             e = noise["triplet"]
-            z_ac = out.mean.float() + out.std.float() * e
-            labels = batch.action[::FRAMES_PER_SECOND]
-            scenario = batch.location[::FRAMES_PER_SECOND]
-            metric_term = sum(triplet_all(z_ac, m.float() + s.float() * e, labels, scenario, self.cfg.margin)[0]
+            sample = lambda mean, std: mesh.all_gather_rows(mean.float() + std.float() * e)
+            z_ac = sample(out.mean, out.std)
+            labels = mesh.all_gather_rows(batch.action[::FRAMES_PER_SECOND])
+            scenario = mesh.all_gather_rows(batch.location[::FRAMES_PER_SECOND])
+            metric_term = sum(triplet_all(z_ac, sample(m, s), labels, scenario, self.cfg.margin)[0]
                               for m, s in per_assoc)
             metrics["triplet"] = metric_term
         reg = 0.0
@@ -209,6 +231,11 @@ class ProjectTask(nn.Module):
         total = mse + hub + latent + metric_term + reg
         metrics["loss"] = total
         return total, metrics
+
+    def forward(self, batch: Batch, **kw):
+        """``loss``: the train step's forward, through which
+        ``DistributedDataParallel`` wraps the task on more than one rank."""
+        return self.loss(batch, **kw)
 
     def embeddings(self, batch: Batch, *, use_mean: bool = False, eps=None, generator=None) -> dict:
         """Per-second latents (f32): ``acoustic``, the acoustic VAE's own,

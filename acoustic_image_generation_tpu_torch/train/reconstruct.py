@@ -71,7 +71,6 @@ class ReconstructTask(nn.Module):
     reads_mfcc = False  # no model reads it: the trainer's batches skip the frontend
     eval_metric = "mse"
     eval_mode = "min"
-    one_device_reason = None  # it trains on more than one rank
 
     def __init__(self, config: ReconstructConfig = ReconstructConfig(), *, device=None):
         super().__init__()
@@ -107,7 +106,7 @@ class ReconstructTask(nn.Module):
         """The modules whose parameters train (FSDP shards each): the VAE."""
         return (self.model,)
 
-    def global_noise(self, frames: int, generator: torch.Generator) -> torch.Tensor:
+    def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor:
         """The VAE noise of a global batch of ``frames`` frames (a sample a
         second for ``Audio``, a frame otherwise), as one device's model draws
         it."""

@@ -67,27 +67,33 @@ Adam on them: the cached step. ``trunk_runs`` counts the trunk forwards the
 trainer ran, ``last_tier`` names the tier of the last cached step.
 
 On more than one rank (``parallel/mesh.py``: ``mesh.launch``, ``torchrun``,
-or ``cli/main.py --num_devices N``) the generation, embedding and
-reconstruction tasks train as JAX's do over its ``data`` mesh, one process
-a device: each rank is handed its own rows of every global batch (the
-loader's ``shard_index``/``shard_count``); the task is wrapped in
-``DistributedDataParallel`` (``broadcast_buffers=False``: the train-mode
-BN statistics are all-reduced in the layers, so the running averages agree
-already) or, with ``parallel.fsdp``, the modules it trains
+or ``cli/main.py --num_devices N``) every task trains as JAX's does over its
+``data`` mesh, one process a device: each rank is handed its own rows of
+every global batch (the loader's ``shard_index``/``shard_count``); the task
+is wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``: the
+train-mode BN statistics are all-reduced in the layers, so the running
+averages agree already) or, with ``parallel.fsdp``, the modules it trains
 (``trained_modules``) are sharded by FSDP2 as JAX's ``fsdp_sharding``
 places them (``fsdp_dims``; the tensors JAX keeps whole stay whole, their
 gradients averaged here); the step's noise is the task's draw for the
-global batch (``global_noise``), of which each rank keeps its rows, and
+global batch (``global_noise``: a tensor, or a dict of them), of which each
+rank keeps its rows of every per-row draw (the joint task's moddrop flag,
+one draw for the batch, is kept whole: the task's ``shared_draws``), and
 the generator goes on from there, the same on every rank (the embedding
 task's moddrop draws); the reported metrics and ``evaluate``'s sums are
 all-reduced; only rank 0 writes files (a barrier follows each write); the
 feature cache keeps each rank's tiers over the windows of its rows, keyed
 by global window ids (a window that moves to another rank after a
 reshuffle misses there: the partial tier runs the trunk on such rows
-alone). Other tasks (their ``one_device_reason``), correspondence and
-``tensor_parallel > 1`` raise at more than one rank, each with its reason
-(``ROADMAP.md`` Queue 1, item 8.1, second half). With one process nothing
-of this runs.
+alone). The correspondence augmentation doubles each rank's rows (every
+loss over the doubled batch is a mean over equal rows, every train-mode BN
+sums order-free global moments); the music shuffle pairs clips of the
+global batch: both permutations are drawn at the global clip count from
+the same generator state on every rank, the rows the shuffle reads are
+gathered (``mesh.all_gather_rows``), and each rank keeps its clips of the
+shuffled batch (in eval, its clips of each half, whose valid prefix the
+mask counts). ``tensor_parallel > 1`` raises (``ROADMAP.md`` Queue 1, item
+8.1.2). With one process nothing of this runs.
 
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
@@ -114,7 +120,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch import bridge
-from acoustic_image_generation_tpu_torch.core.config import SECOND_HALF, ExperimentConfig, refuse_tensor_parallel
+from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig, refuse_tensor_parallel
 from acoustic_image_generation_tpu_torch.data import preprocess
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
 from acoustic_image_generation_tpu_torch.parallel import mesh
@@ -235,12 +241,11 @@ class Trainer:
         self._loss = task.loss  # the train forward and objective; DistributedDataParallel's wrapper on > 1 rank
         self._sharded = []  # FSDP2 modules
         self._whole = []  # trained tensors FSDP keeps whole: gradients averaged in _step_core
+        self._corr = getattr(cfg, "correspondence", False)
+        self._music = getattr(cfg, "datatype", "outdoor") == "music"
         refuse_tensor_parallel(self.config)
         if mesh.active():
-            if task.one_device_reason is None:
-                self._distribute()
-            elif mesh.world() > 1:
-                raise NotImplementedError(f"{type(task).__name__}: {task.one_device_reason} ({SECOND_HALF})")
+            self._distribute()
 
     def _distribute(self) -> None:
         """A rank of a group (of one, too): wrap the task in DDP, or shard
@@ -273,16 +278,36 @@ class Trainer:
         for module in self._sharded:
             module.reshard()
 
-    def _rank_noise(self, eps, generator, rows: int):
+    def _rank_noise(self, eps, generator, rows: int, train: bool = True):
         """More than one rank: ``(eps, generator)`` for this rank's batch of
-        ``rows`` frames. The noise of the global batch (given, or the task's
-        ``global_noise`` from ``generator``, as one device draws it), cut to
-        the rank's rows; the generator goes on past that draw, in the same
-        state on every rank."""
-        if eps is not None:
-            return mesh.shard_rows(eps), None
-        noise = self.task.global_noise(rows * mesh.world(), generator)
-        return (None if noise is None else mesh.shard_rows(noise)), generator
+        ``rows`` frames (before the correspondence augmentation doubles
+        them). The noise of the global batch (given, or the task's
+        ``global_noise`` from ``generator``, as one device draws it; a tensor
+        or a dict of them), each per-row draw cut to the rank's rows
+        (``_rank_rows``), the task's ``shared_draws`` kept whole; the
+        generator goes on past that draw, in the same state on every
+        rank."""
+        if eps is None:
+            eps = self.task.global_noise(rows * mesh.world() * (2 if self._corr else 1), generator, train=train)
+        else:
+            generator = None
+        if eps is None:
+            return None, generator
+        if isinstance(eps, dict):
+            shared = getattr(self.task, "shared_draws", ())
+            return {k: v if k in shared else self._rank_rows(v, train) for k, v in eps.items()}, generator
+        return self._rank_rows(eps, train), generator
+
+    def _rank_rows(self, x, train: bool = True):
+        """This rank's rows of ``x``, whose rows are the global batch's as
+        ``_prepare`` lays them out on one device: contiguous; with the
+        correspondence augmentation, the rank's rows of each half, as
+        ``_prepare`` doubles each rank's rows, except the music shuffle's
+        train batch, whose shuffled order is cut contiguous."""
+        if not self._corr or (self._music and train):
+            return mesh.shard_rows(x)
+        half = x.shape[0] // 2
+        return torch.cat([mesh.shard_rows(x[:half]), mesh.shard_rows(x[half:])])
 
     def _average_whole_grads(self) -> None:
         """FSDP: average the gradients of the tensors it keeps whole (its
@@ -310,21 +335,32 @@ class Trainer:
         video if the task reads them, then the correspondence augmentation
         when the config asks for it (the music shuffle's permutations from
         ``generator``; ``train=False`` keeps the halves in order and pairs
-        only the batch's valid clips)."""
-        corr = getattr(self.cfg, "correspondence", False)
-        music = getattr(self.cfg, "datatype", "outdoor") == "music"
+        only the batch's valid clips). On more than one rank the music
+        shuffle covers the global batch: its rows are gathered, and the rank
+        keeps its rows of the shuffled batch (``_rank_rows``)."""
+        music = self._corr and self._music
         batch = prepare(raw, self.device, compute_mfcc=self.task.reads_mfcc,
                         compute_video=getattr(self.task, "reads_video", True),
-                        compute_filtered=corr and not music)
-        if not corr:
+                        compute_filtered=self._corr and not music)
+        if not self._corr:
             return batch
         if music:
             clips = raw["audio"].shape[0]
             if generator is None:
                 raise ValueError("the music correspondence shuffle draws permutations: pass a generator")
             valid = None if train else int(raw.get("valid", clips))
+            frames = batch.audio.shape[0] // clips
+            if mesh.world() > 1:  # a clip's partner is drawn from the global batch
+                with torch.no_grad():
+                    batch = Batch(*[None if x is None else mesh.all_gather_rows(x) for x in batch])
+                clips *= mesh.world()
+                if valid is not None:  # the valid clips are a prefix of the global batch
+                    valid = int(mesh.all_reduce_(torch.tensor(valid, device=self.device)))
             perms = preprocess.shuffle_permutations(clips, generator, valid_clips=valid, final_shuffle=train)
-            return preprocess.correspondence_shuffle(batch, *perms, frames=batch.audio.shape[0] // clips)
+            batch = preprocess.correspondence_shuffle(batch, *perms, frames=frames)
+            if mesh.world() > 1:
+                batch = Batch(*[None if x is None else self._rank_rows(x, train) for x in batch])
+            return batch
         if self.cfg.correspondence_video:
             return preprocess.correspondence_augment_no_video(batch)
         return preprocess.correspondence_augment(batch)
@@ -557,7 +593,7 @@ class Trainer:
         selected out, not multiplied by 0: their zero acoustic frames
         normalize to NaN (JAX's jitted mask multiply comes out the same)."""
         if mesh.world() > 1:
-            eps, generator = self._rank_noise(eps, generator, _rows(raw))
+            eps, generator = self._rank_noise(eps, generator, _rows(raw), train=False)
         with torch.no_grad():
             batch = self._prepare(raw, generator=shuffle, train=False)
             if trunk_feat is not None:
@@ -568,7 +604,7 @@ class Trainer:
         n_total = next(iter(losses.values())).shape[0]
         clips = raw["audio"].shape[0]
         valid = int(raw.get("valid", clips))
-        halves = 2 if getattr(self.cfg, "correspondence", False) else 1
+        halves = 2 if self._corr else 1
         per_clip = n_total // (clips * halves)
         keep = torch.arange(n_total, device=self.device) % (n_total // halves) < valid * per_clip
         sums = {k: torch.sum(torch.where(keep, v, 0.0)) for k, v in losses.items()}
@@ -757,7 +793,7 @@ class Trainer:
         raw = as_raw(raw_batch)
         eps, generator = None, eval_generator(self.cfg.seed, 0, self.device)
         if mesh.world() > 1:
-            eps, generator = self._rank_noise(None, generator, _rows(raw))
+            eps, generator = self._rank_noise(None, generator, _rows(raw), train=False)
         with torch.no_grad():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, _EVAL, 0), train=False)
             _, aux = self.task.eval_losses(batch, eps=eps, generator=generator)

@@ -218,9 +218,15 @@ failure:
    running averages and the updates (``PAR_TASK_LOSS_REL``,
    ``PAR_TASK_GRAD_TOL``), the later steps' losses (``PAR_TASK_LATER_REL``)
    and every update entry within 2 lr a step, each rank's peak memory
-   printed; then DDP and FSDP in f32 of the embedding and ``Ac`` tasks on 4
-   clips, held after step 1 to all three trajectory bounds but on the BN
-   VAEs, ``Ac`` also after 3 (``PAR_F32_HELD``), beside two more
+   printed; the projection (``Audio`` wiring, 32 clips), the joint task
+   (``moddrop``, 32 clips), DualCamNet on real images (64 clips), the
+   generated classifier (32 clips) and the outdoor correspondence task (64
+   clips: one ``sosfilt`` a rank a step) go through the same checks; then
+   DDP and FSDP in f32 of the embedding, ``Ac``, projection and joint tasks
+   on 4 clips and of the music correspondence shuffle on 8 (its partners drawn
+   from the global batch), held after step 1 to all three trajectory
+   bounds but on the BN modules, ``Ac`` also after 3 (``PAR_F32_HELD``),
+   beside two more
    one-process f32 embedding runs (again, and from weights one f32
    rounding away); with two or more cards, DDP and FSDP of the generation
    task over NCCL on up to four and ``cli.main --num_devices``;
@@ -4122,10 +4128,11 @@ def par_counters() -> dict:
     from acoustic_image_generation_tpu_torch.ops import conv_stats as cs
     from acoustic_image_generation_tpu_torch.ops import mfcc_kernel as mk
     from acoustic_image_generation_tpu_torch.ops import qgemm as qg
+    from acoustic_image_generation_tpu_torch.ops import sosfilt as sf
     from acoustic_image_generation_tpu_torch.ops import stft as st
 
     return {"mfcc": mk.mfcc, "conv_chain": cc.conv_chain, "conv_chain_backward": cc.conv_chain_backward,
-            "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8, "stft": st.stft}
+            "matmul_stats": cs.matmul_stats, "qgemm_s8": qg.qgemm_s8, "stft": st.stft, "sosfilt": sf.filtfilt}
 
 
 def par_batches(seed: int, clips: int = PAR_CLIPS, frames: int = 12) -> list:
@@ -4306,19 +4313,30 @@ def par_launch_check(label: str, launches: dict, extra: dict) -> None:
             raise AssertionError(f"parallel {label}: {launches[k]} {k} launches a rank a step, expected {v}")
 
 
-# The embedding and reconstruction tasks on ranks: each case's task, its configuration and its global batch in
-# one-second clips: the embedding step at the JAX bench's 32 clips; the reconstructions at the CLI's 32; the video
-# VAE at 20, the largest even batch that two ranks hold on the card by phase 14's reading (3.9 GiB of masters,
-# grads and Adam slots and 0.247 GiB a frame a process: 2 x 3.9 + 240 x 0.247 = 67 GiB of 80; 22 clips 73 GiB
-# before the two CUDA contexts and DDP's buckets). One fixed batch a case, PAR_STEPS steps.
+# The other tasks on ranks: each case's family, its configuration and its global batch in one-second clips: the
+# embedding step at the JAX bench's 32 clips; the reconstructions, the projection (``Audio`` wiring: the audio
+# encoder associator's train-mode BN and the triplet over the gathered batch), the joint task (``moddrop``: the
+# shared keep flag) and the generated classifier at the CLI's 32; DualCamNet and the outdoor correspondence task
+# (the silence map: one ``sosfilt`` a rank a step) at phase 12's 64; the video VAE at 20, the largest even batch
+# that two ranks hold on the card by phase 14's reading (3.9 GiB of masters, grads and Adam slots and 0.247 GiB a
+# frame a process: 2 x 3.9 + 240 x 0.247 = 67 GiB of 80; 22 clips 73 GiB before the two CUDA contexts and DDP's
+# buckets). One fixed batch a case, PAR_STEPS steps.
 PAR_TASKS = {
     "embed": ("embed", {}, 32),
     "Ac": ("reconstruct", dict(encoder_type="Ac"), 32),
     "Energy": ("reconstruct", dict(encoder_type="Energy"), 32),
     "Audio": ("reconstruct", dict(encoder_type="Audio"), 32),
     "Video": ("reconstruct", dict(encoder_type="Video"), 20),
+    "project": ("project", dict(encoder_type="Audio"), 32),
+    "joint": ("joint", dict(moddrop=True), 32),
+    "DualCamNet": ("classify", "real", 64),
+    "generated": ("classify", "generated", 32),
+    "correspondence": ("classify", "correspondence", 64),
 }
-PAR_TASK_F32 = {"embed": 4, "Ac": 4}  # the f32 cases and their global clips
+PAR_F32_ONLY = {"music": ("classify", "music", 8)}  # the music shuffle (13 channels), in f32 alone
+PAR_TASK_F32 = {"embed": 4, "Ac": 4, "project": 4, "joint": 4, "music": 8}  # the f32 cases and their global clips
+PAR_READS_VIDEO = ("embed", "Video", "joint", "generated")  # the others' batches carry a placeholder
+PAR_UNSHARDED = ("Energy", "DualCamNet", "generated", "correspondence", "music")  # JAX shards none of their leaves
 # Two ranks against one process, after step 1 (the same weights, the split batch):
 # - the loss, relative: f32 at the generation cases' PAR_LOSS_REL; bf16 at the CPU tests' 1e-4, since each rank's
 #   convolutions run at half the batch, whose bf16 roundings differ (the embedding step read 7.9e-5 in five runs);
@@ -4338,12 +4356,15 @@ PAR_TASK_GRAD_TOL = {"float32": dict(bn=5e-2, plain=1e-2), "bfloat16": dict(bn=0
 # Then steps 2-3, whose weights differ by the +-lr steps Adam takes on gradients at rounding level: every update
 # entry within 2 lr a step (``adam_slack``), f32 ``Ac`` at all three trajectory bounds, and the losses within these
 # shares of one process's, each at least 2x the largest read on an H100 80GB HBM3 at 700 W over six runs (bf16:
-# embed 2.98e-3, Video 1.22e-3, Audio 5.8e-6, Ac and Energy 4.4e-7; f32: embed 6.2e-2, Ac 1.2e-7). The f32
+# embed 2.98e-3, Video 1.22e-3, Audio 5.8e-6, Ac and Energy 4.4e-7; f32: embed 6.2e-2, Ac 1.2e-7), the other
+# families' over two (bf16: project 7.13e-3, joint 7.5e-8, DualCamNet 5.2e-7, generated 2.8e-6, correspondence
+# 6.9e-7; f32: project 1.96e-3, joint 7.5e-8, music 0: its ranks' steps equal one process's). The f32
 # embedding step's loss jumps at step 3 (51.1 to 67-71) as the batch-hard mining passes the rounding-level gaps on:
 # two more one-process runs (the same run again, and from weights one f32 rounding away) show how far that alone
 # moves it (read 1.2e-3-4.9e-2 and 3.2e-3-2.8e-2 in four runs, the ranks 3.9e-3-6.2e-2 in the same four).
 PAR_TASK_LATER_REL = {"embed": 1e-2, "embed f32": 0.15, "Video": 5e-3, "Audio": 1e-4, "Ac": 1e-5, "Ac f32": 1e-5,
-                      "Energy": 1e-5}
+                      "Energy": 1e-5, "project": 2e-2, "project f32": 5e-3, "joint": 1e-6, "joint f32": 1e-6,
+                      "DualCamNet": 2e-6, "generated": 1e-5, "correspondence": 2e-6, "music f32": 1e-6}
 PAR_F32_HELD = ("Ac",)
 
 
@@ -4447,10 +4468,14 @@ def par_task_trainer(name: str, dtype: str, fsdp: bool = False, nudge: bool = Fa
     from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
     from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 
-    family, config, _ = PAR_TASKS[name]
+    family, config, _ = {**PAR_TASKS, **PAR_F32_ONLY}[name]
     device = mesh.device() or "cuda"
     if family == "embed":
         task = EmbedTask(EmbedConfig(compute_dtype=dtype, seed=SEED), device=device).init_params(SEED)
+    elif family == "classify":
+        music = dict(datatype="music", num_channels=13, num_classes=9)
+        task = classify_task("correspondence" if config == "music" else config, device, dtype,
+                             **(music if config == "music" else {}))
     else:
         task = family_task(family, config, device, dtype)
     if nudge:
@@ -4469,16 +4494,18 @@ def par_task_batch(name: str, clips: int) -> dict:
     video of a task that does not read it. Quiet audio (samples in {-1, 0},
     as phase 14's spectrogram reconstruction) where a loss holds the MSE
     against raw magnitudes: from int16-range samples that term is about
-    3e10 (read 3.07e10 on the embedding step), and its train-mode BNs'
-    roundings reach every audio gradient."""
+    3e10 (read 3.07e10 on the embedding step, and on the joint step, whose
+    audio stage 2 reconstructs them), and its train-mode BNs' roundings
+    reach every audio gradient."""
     rng = np.random.default_rng(SEED + 500)
     f = (clips, 12)
-    quiet = name in ("embed", "Audio")
-    raw = dict(acoustic=rng.random((*f, 36, 48, 12), dtype=np.float32),
+    quiet = name in ("embed", "Audio", "joint")
+    raw = dict(acoustic=rng.random((*f, 36, 48, 13 if name == "music" else 12), dtype=np.float32),
                audio=rng.integers(-1 if quiet else -(2**15), 1 if quiet else 2**15, (*f, 1024), dtype=np.int32),
-               action=(np.arange(clips) % 4).astype(np.int32), location=np.zeros(clips, np.int32))
-    reads_video = name in ("embed", "Video")
-    raw["video"] = (rng.integers(0, 256, (*f, 224, 298, 3), dtype=np.uint8) if reads_video
+               # the projection's triplet: each label on both ranks at 4 clips too
+               action=(np.arange(clips) % (2 if name == "project" else 4)).astype(np.int32),
+               location=np.zeros(clips, np.int32))
+    raw["video"] = (rng.integers(0, 256, (*f, 224, 298, 3), dtype=np.uint8) if name in PAR_READS_VIDEO
                     else np.zeros((*f, 1, 1, 3), np.uint8))
     return raw
 
@@ -4556,9 +4583,9 @@ def par_task_phase(plain: dict, init: dict, n1: dict, ranks: list) -> None:
         if not got["launches"] == ref["launches"] == r1[case]["launches"]:
             failed.append(f"parallel {case}: launches a rank a step {got['launches']}, {r1[case]['launches']}; "
                           f"one process {ref['launches']}")
-        # JAX's fsdp_sharding keeps every tensor of fewer than 2^18 entries whole: all of UNetEnergy's
+        # JAX's fsdp_sharding keeps every tensor of fewer than 2^18 entries whole: all of UNetEnergy's and DualCamNet's
         if case.endswith("fsdp") and ((got["sharded"] > 0) != (got["moments"] < 0.75 * ref["moments"])
-                                      or not (got["sharded"] or name == "Energy")):
+                                      or not (got["sharded"] or name in PAR_UNSHARDED)):
             failed.append(f"parallel {case}: {got['sharded']} tensors sharded, Adam moments {got['moments']} bytes "
                           f"against one process's {ref['moments']}")
         first, first_ref = got["first"], ref["first"]
@@ -4657,9 +4684,10 @@ def par_nccl(seed: int) -> dict:
 def parallel_phase(lists: dict, root: Path) -> dict:
     """Phase 16: the generation task on ranks (``parallel/mesh.py``), at full
     width, bf16, random weights and noise from the seed, 64-clip global
-    batches, then the embedding and reconstruction tasks (``PAR_TASKS``),
+    batches, then every other family (``PAR_TASKS``, ``PAR_TASK_F32``),
     each rank's launches reset just before its steps and read just after.
     Returns rank 0's launches over the phase."""
+    t_phase = time.perf_counter()
     from acoustic_image_generation_tpu_torch.parallel import mesh
 
     from acoustic_image_generation_tpu_torch.data import native
@@ -4684,8 +4712,10 @@ def parallel_phase(lists: dict, root: Path) -> dict:
         task_plain[name] = par_task_steps(name, label=f"one process {name}", keep_init=True)
         task_init[name] = task_plain[name].pop("init")
     for name in PAR_TASK_F32:
-        task_plain[f"{name} f32"] = par_task_steps(name, "float32", label=f"one process {name} f32")
-        task_init[f"{name} f32"] = task_init[name]  # the f32 masters of either compute dtype
+        f32 = par_task_steps(name, "float32", label=f"one process {name} f32", keep_init=name in PAR_F32_ONLY)
+        # the f32 masters of either compute dtype
+        task_init[f"{name} f32"] = f32.pop("init") if name in PAR_F32_ONLY else task_init[name]
+        task_plain[f"{name} f32"] = f32
     # how far the f32 embedding step's later losses move without ranks: the same run again, and from weights one
     # f32 rounding away
     task_plain["embed f32 again"] = par_task_steps("embed", "float32", label="one process embed f32 again")
@@ -4790,6 +4820,7 @@ def parallel_phase(lists: dict, root: Path) -> dict:
     else:
         log(f"parallel: this machine has {torch.cuda.device_count()} CUDA device; DDP and FSDP over NCCL on more "
             "than one card are not run")
+    log(f"parallel: phase 16 took {time.perf_counter() - t_phase:.1f} s")
     launches = {k: 0 for k in par_counters()}  # rank 0's, over the phase's ranks
     for out in (n1["train_bn"], n1["frozen"], *(r0[c] for c in PAR_RANK_CASES), r0["cached"],
                 *n1["tasks"].values(), *r0["tasks"].values()):
@@ -5191,7 +5222,7 @@ def phase_only(which: str) -> int:
     if which == "classify":
         log(json.dumps({"sosfilt": check_sosfilt(sf)}))
     if which == "parallel":
-        build.build(("matmul_stats",))  # built here, before any rank starts
+        build.build(("matmul_stats", "stft", "sosfilt"))  # built here, before any rank starts
     with scratch_dir() as root:
         lists = write_shards(root) if which != "convert" else None
         t0 = time.perf_counter()

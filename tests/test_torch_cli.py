@@ -102,10 +102,9 @@ def test_dispatch_runs_the_generation_task_and_names_what_waits():
     assert embed.cfg.num_channels == 13 and embed.acoustic.layer1.conv_1.weight.shape[0] == 9 * 13
     # the classification family is ported (tests/test_torch_classify_cli.py)
     assert isinstance(pmain.select_task(parse(["--model", "DualCamNet", "--mfcc", "1"]), "cpu"), ClassificationTask)
-    # more than one device trains the generation, embedding and reconstruction tasks only
-    # (tests/test_torch_parallel*.py)
-    with pytest.raises(NotImplementedError, match=r"item 8\.1, second half"):
-        pmain.select_task(parse(["--embedding", "1", "--project", "1", "--num_devices", "4"]), "cpu")
+    # more than one device trains every task (tests/test_torch_parallel*.py)
+    assert pmain.task_config(parse(["--embedding", "1", "--project", "1", "--num_devices", "4"]))[0][1] == \
+        "ProjectTask"
     assert isinstance(pmain.select_task(parse(["--embedding", "1", "--num_devices", "4"]), "cpu"), EmbedTask)
 
 

@@ -78,19 +78,17 @@ def test_generation_config_of_an_experiment():
 
 @pytest.mark.parametrize("parallel", [dict(num_devices=2), dict(fsdp=True), dict(tensor_parallel=2)])
 def test_more_than_one_device_raises(parallel):
-    """The generation, embedding and reconstruction tasks take more devices and FSDP
-    (tests/test_torch_parallel*.py); tensor parallelism still raises, as do the other families at more than one
-    device."""
+    """Every task takes more devices and FSDP (tests/test_torch_parallel*.py); tensor parallelism still raises,
+    citing its item."""
     cfg = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**parallel))
-    if "tensor_parallel" in parallel:
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
-            pconfig.generation_config(cfg)
-    else:
-        assert pconfig.generation_config(cfg) == pconfig.generation_config(pconfig.ExperimentConfig())
-        assert pconfig.embed_config(cfg) == pconfig.embed_config(pconfig.ExperimentConfig())
-        assert pconfig.reconstruct_config(cfg) == pconfig.reconstruct_config(pconfig.ExperimentConfig())
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1, second half"):
-        pconfig.project_config(cfg)
+    makers = (pconfig.generation_config, pconfig.embed_config, pconfig.reconstruct_config, pconfig.project_config,
+              pconfig.joint_config, pconfig.classify_config)
+    for make in makers:
+        if "tensor_parallel" in parallel:
+            with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1\.2"):
+                make(cfg)
+        else:
+            assert make(cfg) == make(pconfig.ExperimentConfig())
     pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(num_devices=1)))
     # optax's Adam is the trainer's choice (tests/test_torch_optim.py): the task's configuration is the same
     optax = pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False))

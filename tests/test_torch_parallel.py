@@ -36,6 +36,7 @@ Tolerances, and why:
 
 import concurrent.futures as cf
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -375,10 +376,14 @@ TAKEN = {  # trained on ranks by tests/test_torch_parallel_embed.py and test_tor
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_what_waits_raises_at_two_devices(family):
+    """Every family takes two devices (tests/test_torch_parallel_project.py, test_torch_parallel_classify.py);
+    what waits is tensor parallelism, item 8.1.2."""
     cfg = pmain.config_from_args(pmain.build_parser().parse_args(FAMILIES[family] + ["--num_devices", "2"]))
-    with pytest.raises(NotImplementedError, match=r"item 8\.1, second half"):
-        pmain.task_config(cfg)
-    pmain.task_config(pmain.config_from_args(pmain.build_parser().parse_args(FAMILIES[family])))
+    assert pmain.task_config(cfg)[1] == pmain.task_config(pmain.config_from_args(
+        pmain.build_parser().parse_args(FAMILIES[family])))[1]
+    tp = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, tensor_parallel=2))
+    with pytest.raises(NotImplementedError, match=r"item 8\.1\.2"):
+        pmain.task_config(tp)
 
 
 @pytest.mark.parametrize("family", sorted(TAKEN))
@@ -388,12 +393,12 @@ def test_embedding_and_reconstruction_take_two_devices(family):
 
 
 def test_trainer_refuses_other_tasks_on_two_ranks(world):
+    """The trainer takes the classification task and the generation task with correspondence on two ranks (each
+    trained on ranks in tests/test_torch_parallel_classify.py); tensor parallelism still raises."""
     refusals = world["ranks"][0]["refusals"]
-    assert "classification family trains on one device only" in refusals["classification"]
-    assert "correspondence augmentation" in refusals["correspondence"]
-    assert all(r"item 8.1, second half" in m for m in refusals.values())
+    assert refusals == {"classification": None, "correspondence": None}
     tp = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(tensor_parallel=2))
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+    with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2"):
         pconfig.generation_config(tp)
 
 

@@ -112,15 +112,19 @@ def test_devices_the_cli_takes(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert pmain.num_devices(parse(gen), "cuda") == 4  # unset: every visible GPU for the generation task
     assert pmain.num_devices(parse(gen), "cpu") == 1
-    # so do the embedding and reconstruction tasks; the others take one
+    # so does every other task
     assert pmain.num_devices(parse(["--embedding", "1"]), "cuda") == 4
     assert pmain.num_devices(parse(["--model", "UNet", "--encoder_type", "Audio"]), "cuda") == 4
-    assert pmain.num_devices(parse(["--embedding", "1", "--project", "1"]), "cuda") == 1
+    for flags in (["--embedding", "1", "--project", "1"], ["--embedding", "1", "--jointmvae", "1"],
+                  ["--model", "DualCamNet", "--mfcc", "1"], ["--model", "DualCamNet", "--correspondence", "1"]):
+        assert pmain.num_devices(parse(flags), "cuda") == 4, flags
     assert pmain.num_devices(parse(gen + ["--num_devices", "3"]), "cuda") == 3
     with pytest.raises(RuntimeError, match="5 ranks need 5 CUDA devices; 4 are visible"):
         pmain.main(gen + ["--num_devices", "5", "--train_file", "t", "--valid_file", "v"])
     # what waits is refused before any rank starts
-    with pytest.raises(NotImplementedError, match=r"projection task trains on one device only.*item 8\.1"):
+    monkeypatch.setattr(pmain, "config_from_args", lambda args, f=pmain.config_from_args: dataclasses.replace(
+        f(args), parallel=dataclasses.replace(f(args).parallel, tensor_parallel=2)))
+    with pytest.raises(NotImplementedError, match=r"tensor_parallel > 1 is not ported.*item 8\.1\.2"):
         pmain.main(["--embedding", "1", "--project", "1", "--num_devices", "2", "--device", "cpu"])
 
 
