@@ -25,7 +25,10 @@ scopes, and the layouts change as follows:
 Every flax leaf must land on exactly one port tensor and every port tensor
 must be set; anything else raises. The values land in the port's f32
 masters unrounded. ``to_flax(task)`` gives the trees back, as numpy f32,
-so that the two packages' trajectories compare leaf by leaf.
+so that the two packages' trajectories compare leaf by leaf. Under FSDP or
+tensor parallelism (``parallel/mesh.py``) ``load_flax`` keeps each rank's
+shard or block of a whole leaf, and ``to_flax`` gathers them whole first
+(every rank of the group calls).
 
 ``load_qtrunk(qt, tree)`` and ``qtrunk_to_tree(qt)`` do the same for the
 int8 trunk of ``models/quant.py`` (JAX's ``quantize_trunk``/``calibrate``
@@ -181,11 +184,11 @@ def load_flax(task: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> N
         if path not in trees[coll]:
             raise KeyError(f"no flax {coll} leaf {'/'.join(path)} for a port tensor")
         value = fn(np.asarray(trees[coll][path], np.float32))
-        if value.shape != tuple(tensor.shape):
+        if value.shape != mesh.whole_shape(tensor):
             raise ValueError(
-                f"{coll} {'/'.join(path)}: {value.shape} does not fit port tensor {tuple(tensor.shape)}"
+                f"{coll} {'/'.join(path)}: {value.shape} does not fit port tensor {mesh.whole_shape(tensor)}"
             )
-        mesh.copy_full_(tensor, _strided(value))  # an FSDP shard keeps its rows
+        mesh.copy_full_(tensor, _strided(value))  # an FSDP shard keeps its rows, a split tensor its block
         used.add((coll, path))
         covered.add(id(tensor))
     left = sorted("/".join((c, *p)) for c, t in trees.items() for p in t if (c, p) not in used)

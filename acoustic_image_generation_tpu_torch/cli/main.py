@@ -44,7 +44,11 @@ CPU. Under ``torchrun``
 each process is the rank its environment names. Each rank's loader
 decodes only its rows: a rank is one process, so the host sharding that
 JAX's ``--host_shard 1`` asks of a multi-host run is the port's one layout,
-and the flag is accepted for JAX's recipes.
+and the flag is accepted for JAX's recipes. As JAX's parser, this one has
+no tensor-parallel flag: a configuration that carries
+``parallel.tensor_parallel = tp`` lays the N ranks out as its ``(N // tp,
+tp)`` grid, each rank's loader decoding its data rank's rows, and an N that
+``tp`` does not divide raises before any rank starts.
 """
 
 from __future__ import annotations
@@ -269,7 +273,8 @@ def select_task(config: ExperimentConfig, device: str = "cuda"):
 def make_loader(config: ExperimentConfig, split: str):
     """The split's ``AcousticImageDataLoader``, or None without its list.
     On more than one rank it decodes this rank's rows of every batch
-    (``shard_index``/``shard_count``)."""
+    (``shard_index``/``shard_count``): its data rank's, after the
+    ``Trainer`` has laid the ranks out as a grid."""
     from acoustic_image_generation_tpu_torch.data.pipeline import AcousticImageDataLoader
 
     path = {"training": config.data.train_file, "validation": config.data.valid_file,
@@ -277,8 +282,8 @@ def make_loader(config: ExperimentConfig, split: str):
     if path is None:
         return None
     return AcousticImageDataLoader(path, split, config.data.batch_size, sample_length=config.data.sample_length,
-                                   datakind=config.data.datatype, seed=config.run.seed, shard_index=mesh.rank(),
-                                   shard_count=mesh.world())
+                                   datakind=config.data.datatype, seed=config.run.seed,
+                                   shard_index=mesh.data_rank(), shard_count=mesh.data_world())
 
 
 def num_devices(config: ExperimentConfig, device: str) -> int:

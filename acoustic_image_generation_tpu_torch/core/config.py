@@ -18,8 +18,14 @@ only to carry them: the TPU-only ``pallas_mfcc`` and ``fused_conv`` (on the
 card the port always runs the MFCC frontend and the generator's conv pairs
 on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``'s
 ``num_devices`` and ``fsdp`` train every task on that many ranks
-(``parallel/mesh.py``; ``cli/main.py`` starts them). ``tensor_parallel >
-1`` raises (``ROADMAP.md`` Queue 1, item 8.1.2).
+(``parallel/mesh.py``; ``cli/main.py`` starts them). ``tensor_parallel =
+tp > 1`` lays them out as JAX's ``(data, model)`` mesh for the generation
+task, the embedding family and the reconstruction task; the checks are
+JAX's (``fsdp`` with it raises ``ValueError``, as does a ``num_devices``
+that ``tp`` does not divide), and the projection, joint and classification
+families and the correspondence augmentation raise
+``NotImplementedError`` (``ROADMAP.md`` Queue 1, item 8.1.2, second
+part).
 """
 
 from __future__ import annotations
@@ -201,19 +207,42 @@ def _build(cls, values: dict):
     return cls(**{k: tuple(v) if k in tuples and isinstance(v, list) else v for k, v in values.items()})
 
 
-def refuse_tensor_parallel(config: ExperimentConfig) -> None:
-    if config.parallel.tensor_parallel > 1:
-        raise NotImplementedError("tensor_parallel > 1 is not ported: the port splits a task's batch (num_devices) "
-                                  "and shards its weights (fsdp) only (ROADMAP.md Queue 1, item 8.1.2)")
+# the configurations of the tasks that do not run split yet, by the name a refusal gives them
+_WAITING = {ProjectConfig: "the projection family", JointConfig: "the joint family",
+            ClassifyConfig: "the classification family"}
+
+
+def check_tensor_parallel(config: ExperimentConfig, task_cfg) -> None:
+    """JAX's checks of ``parallel.tensor_parallel`` (``Trainer.__init__``,
+    ``make_mesh``), then the port's, the one place that decides which tasks
+    run split: the task of configuration ``task_cfg`` (a
+    ``GenerationConfig``, ``EmbedConfig`` or ``ReconstructConfig``; the
+    tasks with ``split_modules``) without the correspondence
+    augmentation."""
+    p = config.parallel
+    tp = p.tensor_parallel
+    if tp <= 1:
+        return
+    if p.fsdp:
+        raise ValueError("fsdp and tensor_parallel are mutually exclusive")
+    if p.num_devices is not None and p.num_devices % tp:
+        raise ValueError(f"num_devices={p.num_devices} is not a multiple of tensor_parallel={tp}")
+    if config.data.correspondence or getattr(task_cfg, "correspondence", False):
+        what = "the correspondence augmentation"
+    elif isinstance(task_cfg, (GenerationConfig, EmbedConfig, ReconstructConfig)):
+        return
+    else:
+        what = _WAITING.get(type(task_cfg), type(task_cfg).__name__)
+    raise NotImplementedError(f"tensor_parallel > 1 with {what} is not ported yet (ROADMAP.md Queue 1, "
+                              f"item 8.1.2, second part)")
 
 
 def generation_config(config: ExperimentConfig) -> GenerationConfig:
     """The port's ``GenerationConfig`` of an experiment. Raises for what
-    the port does not run: tensor parallelism. ``optim.tf1_adam`` and
-    ``parallel`` are the trainer's (``Trainer``)."""
-    refuse_tensor_parallel(config)
+    the port does not run (``check_tensor_parallel``). ``optim.tf1_adam``
+    and ``parallel`` are the trainer's (``Trainer``)."""
     m, o = config.model, config.optim
-    return GenerationConfig(
+    return _checked(config, GenerationConfig(
         num_skip_conn=m.num_skip_conn,
         ae=m.ae,
         resnet_units=tuple(m.resnet_units),
@@ -237,16 +266,23 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
         cache_disk_dir=m.cache_disk_dir,
         cache_disk_bytes=m.cache_disk_bytes,
         cache_features_dtype=m.cache_features_dtype,
-    )
+    ))
+
+
+def _checked(config: ExperimentConfig, task_cfg):
+    """``task_cfg``, after ``check_tensor_parallel`` took it."""
+    check_tensor_parallel(config, task_cfg)
+    return task_cfg
 
 
 def classify_config(config: ExperimentConfig, *, generated: bool = False) -> ClassifyConfig:
     """The port's ``ClassifyConfig`` of an experiment (classes and channels
     by ``data.datatype``); ``generated`` adds the frozen generator's
-    ``GenerationConfig``. Raises for what ``generation_config`` refuses."""
+    ``GenerationConfig``. Raises for what ``generation_config`` refuses,
+    and for tensor parallelism."""
     gen = generation_config(config)
     d = config.data
-    return ClassifyConfig(
+    return _checked(config, ClassifyConfig(
         num_classes=d.num_classes,
         num_channels=d.num_channels,
         sample_length=d.sample_length,
@@ -258,7 +294,7 @@ def classify_config(config: ExperimentConfig, *, generated: bool = False) -> Cla
         learning_rate=config.optim.learning_rate,
         seed=config.run.seed,
         generation=gen if generated else None,
-    )
+    ))
 
 
 def embed_config(config: ExperimentConfig) -> EmbedConfig:
@@ -273,7 +309,7 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
     stats_dir = d.stats_dir
     if stats_dir is None and d.train_file:
         stats_dir = os.path.join(os.path.dirname(d.train_file), "stats2s")
-    return EmbedConfig(
+    return _checked(config, EmbedConfig(
         num_channels=d.num_channels,
         latent_dim=m.num_class,
         margin=o.margin,
@@ -287,7 +323,7 @@ def embed_config(config: ExperimentConfig) -> EmbedConfig:
         compute_dtype=config.parallel.compute_dtype,
         learning_rate=o.learning_rate,
         seed=config.run.seed,
-    )
+    ))
 
 
 def _common(config: ExperimentConfig) -> dict:
@@ -301,20 +337,20 @@ def _common(config: ExperimentConfig) -> dict:
 def reconstruct_config(config: ExperimentConfig) -> ReconstructConfig:
     """The port's ``ReconstructConfig`` of an experiment (``model.
     encoder_type``; 13 acoustic channels for music)."""
-    return ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config))
+    return _checked(config, ReconstructConfig(encoder_type=config.model.encoder_type, **_common(config)))
 
 
 def project_config(config: ExperimentConfig) -> ProjectConfig:
     """The port's ``ProjectConfig`` of an experiment (``model.encoder_type``,
     ``fusion``, ``l2``, ``optim.margin``)."""
     m = config.model
-    return ProjectConfig(encoder_type=m.encoder_type, fusion=m.fusion, l2=m.l2, margin=config.optim.margin,
-                         **_common(config))
+    return _checked(config, ProjectConfig(encoder_type=m.encoder_type, fusion=m.fusion, l2=m.l2,
+                                          margin=config.optim.margin, **_common(config)))
 
 
 def joint_config(config: ExperimentConfig) -> JointConfig:
     """The port's ``JointConfig`` of an experiment (``model.fusion``,
     ``onlyaudiovideo``, ``moddrop``)."""
     m = config.model
-    return JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop,
-                       **_common(config))
+    return _checked(config, JointConfig(fusion=m.fusion, onlyaudiovideo=m.onlyaudiovideo, moddrop=m.moddrop,
+                                        **_common(config)))

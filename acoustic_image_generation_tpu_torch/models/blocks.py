@@ -8,7 +8,10 @@ their plain versions on the CPU). With BN, each conv is followed by BN
 before its ReLU, which the chain kernel does not fuse, so the convs run on
 plain cuDNN convs as JAX's run on XLA's. Module names mirror the flax
 scopes (``conv_1``, ``bn_1``, ``conv_2``, ``bn_2``, ``pool_2``,
-``bn_pool_2``, ``mean``, ``std``).
+``bn_pool_2``, ``mean``, ``std``). Under tensor parallelism a ``Conv2d``
+whose kernel JAX's rule splits (the BN variant's convs of 256 channels or
+more, a 1024-channel VAE head) runs column-parallel (``models/layers.py``)
+and its BN on the gathered map.
 """
 
 from __future__ import annotations

@@ -12,6 +12,15 @@ device, as flax's ``param_dtype=float32``; each module computes in its
 - ``Dense``: ``nn.Linear``, weight (out, in) (flax: (in, out));
 - ``ConvTransposeTF``: weight (in, out, kh, kw) (flax: HWIO, unflipped).
 
+Under tensor parallelism (``parallel/mesh.py``) a ``Conv2d`` or
+``ConvTransposeTF`` whose weight is split (``mesh.split_``: its block of
+the output channels, dim 0 or dim 1) runs as a column-parallel layer:
+``sum_input_grad`` on the input and on the bias, the conv on the local
+channels with their slice of the bias (added before the output's one
+rounding, as one device adds it), then ``gather_channels``. The bias stays
+whole and replicated, as JAX keeps 1-D leaves: each peer's gradient of it
+covers its slice, and ``sum_input_grad`` sums them into the whole one.
+
 ``reset_parameters(generator)`` draws the JAX initializers' distributions
 from a CPU ``torch.Generator``: glorot-uniform (``tf.layers`` and
 ``xavier_initializer``) with zero biases, or, for ``Conv2d`` and ``Dense``
@@ -71,6 +80,15 @@ def init_modules(root: nn.Module, seed: int) -> None:
             m.reset_parameters(g)
 
 
+def split_conv(conv, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A column-parallel conv: ``conv(x, b)`` on this rank's output
+    channels, ``b`` its slice of the whole ``bias``, gathered whole over the
+    model group."""
+    c = bias.shape[0] // mesh.model_world()
+    b = mesh.sum_input_grad(bias).narrow(0, mesh.model_rank() * c, c)
+    return mesh.gather_channels(conv(mesh.sum_input_grad(x), b))
+
+
 def minmax_norm(x: torch.Tensor, dims) -> torch.Tensor:
     """Per-sample min-max onto [0, 1] over ``dims``. No epsilon, as in the
     reference: a constant input gives NaN."""
@@ -105,6 +123,10 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if mesh.tp_dim(self.weight) is not None:
+            w = self.weight.to(dt)
+            return split_conv(lambda v, b: conv2d_xla(v, w, b, self.stride, self.padding), x.to(dt),
+                              self.bias.to(dt))
         return conv2d_xla(
             x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding
         )
@@ -123,10 +145,12 @@ class BatchNorm(nn.Module):
     output in ``x``'s dtype. ``F.batch_norm(training=True)`` would put the
     unbiased variance in the running average, so it is not used.
 
-    With more than one rank (``parallel/mesh.py``) the statistics cover the
-    global batch, as JAX's over its ``data`` mesh: ``mesh.global_moments``
-    of the per-channel sums, sums of squares and counts, so the running
-    averages come out equal on every rank."""
+    With more than one data rank (``parallel/mesh.py``) the statistics
+    cover the global batch, as JAX's over its ``data`` mesh:
+    ``mesh.global_moments`` of the per-channel sums, sums of squares and
+    counts, so the running averages come out equal on every rank. Under
+    tensor parallelism a BN after a split conv runs on the gathered whole
+    map, replicated on the model group's peers."""
 
     def __init__(self, channels, eps: float, momentum: float, *, device=None):
         super().__init__()
@@ -160,7 +184,7 @@ class BatchNorm(nn.Module):
             )
             return y.permute(0, 2, 3, 1)
         xf = x.float()
-        if mesh.world() > 1:
+        if mesh.data_world() > 1:
             mean, var = mesh.global_moments(xf.sum(dim=(0, 1, 2)), xf.square().sum(dim=(0, 1, 2)),
                                             xf.numel() // xf.shape[-1])
         else:
@@ -224,4 +248,8 @@ class ConvTransposeTF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if mesh.tp_dim(self.weight) is not None:
+            w = self.weight.to(dt)
+            return split_conv(lambda v, b: conv_transpose_tf(v, w, self.strides, bias=b), x.to(dt),
+                              self.bias.to(dt))
         return conv_transpose_tf(x.to(dt), self.weight.to(dt), self.strides, bias=self.bias.to(dt))

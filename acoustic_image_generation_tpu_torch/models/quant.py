@@ -26,6 +26,10 @@ subsampled grid) through ``ops.qgemm.fused_q1x1``, the ``qgemm_s8`` CUDA
 kernel on the card: conv, dequant, bias, shortcut add, ReLU and requant in
 one launch, 36 per trunk forward. The stem and the 3x3 convs run as exact
 int32 products (``ops/qconv.py``).
+
+Under tensor parallelism (``parallel/mesh.py``) the int8 trunk is whole on
+every rank, as JAX keeps it outside its split state: folded and quantized
+from the whole float kernels, its amaxes the maxima over the data group.
 """
 
 from __future__ import annotations
@@ -44,11 +48,13 @@ from acoustic_image_generation_tpu_torch.parallel import mesh
 
 def fold_conv_bn(conv: ConvBN) -> tuple[torch.Tensor, torch.Tensor]:
     """``(kernel OIHW f32, bias f32 (O,))`` of ``conv`` with its BN folded
-    in, on the BN's running statistics."""
+    in, on the BN's running statistics; a kernel split over the model group
+    is gathered whole first (every peer calls)."""
     bn = conv.bn
     with torch.no_grad():
         s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-        return conv.weight.float() * s[:, None, None, None], bn.bias.float() - bn.running_mean.float() * s
+        kernel = mesh.full(conv.weight).float()
+        return kernel * s[:, None, None, None], bn.bias.float() - bn.running_mean.float() * s
 
 
 def _quantize_kernel(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

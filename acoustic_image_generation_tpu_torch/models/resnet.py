@@ -29,6 +29,12 @@ f32, the biased batch variance in the running average,
   runs through ``ops.conv_stats`` (the ``matmul_stats`` kernel on the card)
   and applies BN with the statistics it returns, in the compute dtype
   (JAX's ``_Conv1x1Stats`` + ``_TrainBN``). The parameters are the same.
+
+Under tensor parallelism (``parallel/mesh.py``) a ``ConvBN`` whose kernel
+is split holds its block of the output channels: the conv (or the
+``matmul_stats`` product, on the local columns, with their column sums)
+runs on them after ``sum_input_grad``, ``gather_channels`` makes the whole
+map (and the whole mean and variance), and the BN runs on it, replicated.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, he_truncated_normal
 from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_stats
 from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_same_fixed_pad, conv2d_xla
+from acoustic_image_generation_tpu_torch.parallel import mesh
 
 # (base_depth, num_units, stride) per block.
 RESNET50_BLOCKS = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 1))
@@ -76,15 +83,21 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         w = self.weight.to(self.dtype)
         x = x.to(self.dtype)
+        split = mesh.tp_dim(self.weight) is not None
+        if split:
+            x = mesh.sum_input_grad(x)
         if train and self.fused_stats:
             y, mean, var = conv1x1_batch_stats(x.contiguous(), w.reshape(w.shape[0], -1).t())
+            if split:
+                y = mesh.gather_channels(y)
+                mean, var = mesh.gather_channels(torch.stack([mean, var])).unbind()
             y = self.bn.forward_stats(y, mean, var)
         else:
             if self.fixed_pad:
                 y = conv2d_same_fixed_pad(x, w, self.stride)
             else:
                 y = conv2d_xla(x, w, None, self.stride, self.padding)
-            y = self.bn(y, train)
+            y = self.bn(mesh.gather_channels(y) if split else y, train)
         return F.relu(y) if self.relu else y
 
 

@@ -31,6 +31,12 @@ runs on ``conv_chain`` (JAX's on plain convs; identical in f32):
     upsample_8 (2,2)/2 -> 36x48 (16), concat layer1's conv, layer8 (16), layer8_2 (8)
     final   3x3 conv -> 1, ReLU (not sigmoid)
 
+Under tensor parallelism (``parallel/mesh.py``) ``UNetVideo``'s wide convs
+(``layer3``, ``layer5``, ``conv_dec``, ``upsample_6``, ``layer6``,
+``layer7``, and a head of 1024 latents) hold a rank's block of output
+channels and run column-parallel (``models/layers.py``); nothing of
+``UNetEnergy`` is wide enough to split.
+
 ``UNetVideoSkip`` is not ported (``ROADMAP.md`` Queue 1, item 8).
 """
 

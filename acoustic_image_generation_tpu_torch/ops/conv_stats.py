@@ -146,13 +146,13 @@ matmul_stats.launches = 0
 def conv1x1_batch_stats(x: torch.Tensor, kernel: torch.Tensor):
     """(B, H, W, Cin) NHWC x (Cin, Cout) -> (y (B, H, W, Cout) in x.dtype,
     batch mean (Cout,) f32, biased batch variance (Cout,) f32). With more
-    than one rank the statistics are the global batch's
+    than one data rank the statistics are the global batch's
     (``parallel.mesh.global_moments``)."""
     b, h, w_, cin = x.shape
     cout = kernel.shape[-1]
     m = b * h * w_
     y, s, ss = matmul_stats(x.reshape(m, cin), kernel.reshape(cin, cout))
-    if mesh.world() > 1:
+    if mesh.data_world() > 1:
         # the kernel's sums are this rank's rows: all-reduced over the global batch
         mean, var = mesh.global_moments(s, ss, m)
     else:

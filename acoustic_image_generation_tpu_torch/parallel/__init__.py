@@ -1,1 +1,1 @@
-"""Data parallelism and FSDP over ``torch.distributed`` (``mesh.py``)."""
+"""Data parallelism, FSDP and tensor parallelism over ``torch.distributed`` (``mesh.py``)."""

@@ -31,9 +31,10 @@ with ``TornStateError`` rather than written.
 
 On more than one rank (``parallel/mesh.py``) the file is the one-process
 file, byte for byte: FSDP's shards of the parameters and of their Adam
-slots are gathered whole first (every rank takes part), and only the rank
-that writes (``write=True``, rank 0) encodes and writes it. Every rank
-restores the whole file and keeps its shards.
+slots, or the blocks of the kernels split over a model group (tensor
+parallelism), are gathered whole first (every rank takes part), and only
+the rank that writes (``write=True``, rank 0) encodes and writes it. Every
+rank restores the whole file and keeps its shards or blocks.
 """
 
 from __future__ import annotations
@@ -74,8 +75,9 @@ def slot_count(state: TrainState) -> int:
 
 
 def sharded(state: TrainState) -> bool:
-    """Whether any trained tensor of ``state`` is an FSDP shard."""
-    return any(mesh.is_sharded(p) for p in _trainable(state))
+    """Whether any tensor of ``state`` is an FSDP shard or split over a
+    model group (then every rank gathers)."""
+    return any(mesh.is_split(p) for p in state.task.parameters())
 
 
 def _collect(state: TrainState, copy: bool) -> dict:
@@ -97,7 +99,7 @@ def _collect(state: TrainState, copy: bool) -> dict:
                 slots.append((path, fn, take(mesh.full(slot["m"], like=tensor)),
                               take(mesh.full(slot["v"], like=tensor))))
             else:
-                zeros = torch.zeros(tuple(tensor.shape), dtype=tensor.dtype, device=tensor.device)
+                zeros = torch.zeros(mesh.whole_shape(tensor), dtype=tensor.dtype, device=tensor.device)
                 slots.append((path, fn, zeros, zeros))
     return {"step": state.step, "count": count, "leaves": leaves, "slots": slots,
             "labelled": hasattr(state.task, "param_labels")}
@@ -160,7 +162,7 @@ def _write(path: str, tree: dict) -> None:
 
 def save_checkpoint(run_dir: str, name, state: TrainState, *, write: bool = True) -> str:
     """Write ``epoch_{name}.ckpt``; with ``write=False`` only take part in
-    gathering FSDP's shards (the other ranks)."""
+    gathering FSDP's shards or the split tensors (the other ranks)."""
     path = os.path.join(run_dir, f"epoch_{name}.ckpt")
     if not write and not sharded(state):
         return path
@@ -260,8 +262,8 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
         slot = {"step": count}
         for key, value in (("m", m), ("v", v)):
             arr = np.array(fn(np.asarray(value, np.float32)), order="C")
-            if arr.shape != tuple(tensor.shape):
-                raise ValueError(f"{path}: slot {key} of {'/'.join(tpath)} is {arr.shape}, not {tuple(tensor.shape)}")
+            if arr.shape != mesh.whole_shape(tensor):
+                raise ValueError(f"{path}: slot {key} of {'/'.join(tpath)} is {arr.shape}, not {mesh.whole_shape(tensor)}")
             slot[key] = mesh.local_rows_of(torch.from_numpy(arr), tensor).to(tensor.device, tensor.dtype)
         opt.state[tensor] = slot
     template.step = step

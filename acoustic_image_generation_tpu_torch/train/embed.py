@@ -39,7 +39,9 @@ train-mode BN statistics (``models/layers.py``); the triplet mining,
 shape (``global_noise``) and cuts to the rank's rows, so that the moddrop
 draws after it come from the same generator state on every rank. The
 reconstruction terms and the ``l2`` variant are rank means over equal
-rows, which the trainer averages.
+rows, which the trainer averages. Under tensor parallelism the rows are the
+data rank's and the gathers run over the data group; the video VAE's wide
+convs are split over the model group (``split_modules``).
 """
 
 from __future__ import annotations
@@ -138,6 +140,14 @@ class EmbedTask(nn.Module):
         """The modules whose parameters train (FSDP shards each): the three
         VAEs."""
         return self.acoustic, self.audio, self.video
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The module that holds every kernel JAX's ``tp_sharding`` splits
+        under tensor parallelism (``parallel/mesh.py``): the video VAE
+        (``layer3``, ``layer5``, ``conv_dec``, ``upsample_6``, ``layer6``,
+        ``layer7``), trained, so its split convs run both collectives. The
+        acoustic and audio VAEs (at most 128 channels) stay whole."""
+        return (self.video,)
 
     @staticmethod
     def kernels(module: nn.Module) -> list[torch.Tensor]:

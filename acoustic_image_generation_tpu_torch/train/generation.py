@@ -22,6 +22,10 @@ calibrated on normalized frames) and passed to ``loss``, ``eval_losses`` and
 ``conv_map``'s BN statistics and gradients are those of the f32 trunk's
 path. ``fused_qgemm`` puts every 1x1 trunk conv on the ``qgemm_s8`` kernel.
 The L2 term still covers the f32 trunk kernels, as in JAX.
+
+Under tensor parallelism (``split_modules``) the trunk's wide convs hold
+their block of the output channels on each rank of a model group; the
+int8 trunk is built whole from them (``models/quant.py``).
 """
 
 from __future__ import annotations
@@ -135,6 +139,14 @@ class GenerationTask(nn.Module):
         """The modules whose parameters train (FSDP shards each): ``conv_map``
         and the generator."""
         return self.resnet.conv_map, self.generator
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The modules that hold every kernel JAX's ``tp_sharding`` splits
+        under tensor parallelism (``parallel/mesh.py``): the trunk's convs of
+        256 to 2048 outputs. They are frozen, so the split runs forward
+        collectives only; ``conv_map`` (12 outputs) and the generator (at
+        most 133) stay whole."""
+        return (self.resnet,)
 
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
         """The VAE noise of a global batch of ``frames`` frames (the doubled

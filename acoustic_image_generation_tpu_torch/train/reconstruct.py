@@ -26,7 +26,8 @@ of the global batch: the BN models' train-mode statistics cover the
 global batch (``models/layers.py``), and the VAE noise is the global
 batch's draw (``global_noise``, drawn by the trainer), cut to the rank's
 rows, as JAX's one program over its ``data`` mesh draws it. The loss terms
-are rank means over equal rows, which the trainer averages.
+are rank means over equal rows, which the trainer averages. Under tensor
+parallelism the rows are the data rank's (``split_modules``).
 """
 
 from __future__ import annotations
@@ -104,6 +105,14 @@ class ReconstructTask(nn.Module):
 
     def trained_modules(self) -> tuple[nn.Module, ...]:
         """The modules whose parameters train (FSDP shards each): the VAE."""
+        return (self.model,)
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The module that holds every kernel JAX's ``tp_sharding`` splits
+        under tensor parallelism (``parallel/mesh.py``): the VAE. Only
+        ``Video``'s has such kernels (its wide convs and its head's
+        1024-channel mean and std); ``Ac``, ``Energy`` and ``Audio`` keep
+        every kernel whole, and the grid only sets which ranks share rows."""
         return (self.model,)
 
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor:

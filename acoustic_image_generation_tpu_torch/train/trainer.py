@@ -92,8 +92,49 @@ global batch: both permutations are drawn at the global clip count from
 the same generator state on every rank, the rows the shuffle reads are
 gathered (``mesh.all_gather_rows``), and each rank keeps its clips of the
 shuffled batch (in eval, its clips of each half, whose valid prefix the
-mask counts). ``tensor_parallel > 1`` raises (``ROADMAP.md`` Queue 1, item
-8.1.2). With one process nothing of this runs.
+mask counts). With one process nothing of this runs.
+
+With ``parallel.tensor_parallel = tp > 1`` (the generation task, the
+embedding family and the reconstruction task: those with
+``split_modules``) the ``N`` ranks form JAX's ``(data = N // tp, model =
+tp)`` grid (``mesh.make_grid``): rank ``r`` at data index ``r // tp`` and
+model index ``r % tp``. The task is built whole on every rank (the same
+seed, or ``bridge.load_flax``); the trainer then keeps, of every kernel
+JAX's ``tp_sharding`` splits (``tp_dims``: a 4-D kernel of at least 256
+output channels that ``tp`` divides, all inside ``split_modules``), the
+model rank's block of output channels (``mesh.split_``), so that its Adam
+slots hold that block too, and gives model rank 0's replicated tensors to
+its peers. The split convs run as column-parallel layers
+(``models/layers.py``, ``models/resnet.py``); everything else runs
+replicated on the peers of a model group, which hold the same rows and
+draw the same noise: the rows, the noise, the BN statistics, the row
+gathers, the metrics and the eval sums are the data group's, and DDP
+averages the gradients over the data group only (none when it has one
+rank). After the backward the replicated trained tensors' gradients, the
+BN running averages and the reported metrics are made model rank 0's
+(``mesh.broadcast_model_``), so that no kernel whose sums depend on the
+order of atomics (``conv_chain``'s dW, cuDNN's nondeterministic f32
+transposed convs) lets the peers drift apart. That broadcast, which GSPMD
+does not do, moves every replicated gradient (4 bytes an entry), the f32
+buffers and the metrics over the model group each step. ``own_steps``, when set to a
+list, receives what this rank computed in each step before that
+broadcast (its loss terms and a digest of its replicated gradients and
+statistics), so that a check can hold the peers' own results against
+each other.
+Checkpoints gather every split tensor and slot whole over the model group
+(every rank takes part; rank 0 writes JAX's file), and a restore keeps the
+rank's block. No crash checkpoint is written under tensor parallelism, as
+under FSDP: the gather needs every peer, and a failing rank may never get
+there. The feature cache's decisions depend only on the rows, the same on
+the peers of a model group, so they hit and miss together (a trunk run on
+one peer alone would hang in its gathers); every peer writes the disk
+tier's files, the same bytes, through its atomic replace.
+``core/config.py::check_tensor_parallel`` decides, from the task's
+configuration, which tasks run split: ``fsdp`` with ``tensor_parallel >
+1`` raises ``ValueError``, as JAX's trainer does; the projection, joint and
+classification families and the correspondence augmentation raise
+``NotImplementedError`` (``ROADMAP.md`` Queue 1, item 8.1.2, second
+part).
 
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
@@ -120,7 +161,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch import bridge
-from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig, refuse_tensor_parallel
+from acoustic_image_generation_tpu_torch.core.config import ExperimentConfig, check_tensor_parallel
 from acoustic_image_generation_tpu_torch.data import preprocess
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, normalize_video, preprocess_batch
 from acoustic_image_generation_tpu_torch.parallel import mesh
@@ -156,22 +197,36 @@ def data_generator(seed: int, *index: int) -> torch.Generator:
     return torch.Generator().manual_seed(s)
 
 
-def fsdp_dims(task: torch.nn.Module, world: int) -> dict:
-    """The port dim each trained tensor of ``task`` is sharded on over
-    ``world`` ranks, or None (kept whole): JAX's ``fsdp_sharding`` rule
-    (``mesh.fsdp_axis``) on the tensor's flax shape, mapped through its
-    layout (``bridge.flax_layout``). Keyed by the tensor."""
+def _port_dims(task: torch.nn.Module, rule, trained_only: bool) -> dict:
+    """The port dim of each parameter of ``task`` (the trained ones with
+    ``trained_only``) on which ``rule`` (flax shape -> flax axis or None)
+    puts it, mapped through its layout (``bridge.flax_layout``), or None.
+    Keyed by the tensor."""
     out = {}
     for tensor, coll, path, fn in bridge.targets(task):
-        if coll != "params" or not tensor.requires_grad:
+        if coll != "params" or (trained_only and not tensor.requires_grad):
             continue
         shape, axes = bridge.flax_layout(fn, tuple(tensor.shape))
-        axis = mesh.fsdp_axis(shape, world)
+        axis = rule(shape)
         if axis is not None and axes[axis] is None:
-            raise ValueError(f"{'/'.join(path)}: JAX shards flax axis {axis}, which is not one axis of the "
+            raise ValueError(f"{'/'.join(path)}: JAX's rule takes flax axis {axis}, which is not one axis of the "
                              f"port's layout {tuple(tensor.shape)}")
         out[tensor] = None if axis is None else axes[axis]
     return out
+
+
+def fsdp_dims(task: torch.nn.Module, world: int) -> dict:
+    """The port dim each trained tensor of ``task`` is sharded on over
+    ``world`` ranks, or None (kept whole): JAX's ``fsdp_sharding`` rule
+    (``mesh.fsdp_axis``) on the tensor's flax shape."""
+    return _port_dims(task, lambda shape: mesh.fsdp_axis(shape, world), trained_only=True)
+
+
+def tp_dims(task: torch.nn.Module, tp: int) -> dict:
+    """The port dim each parameter of ``task`` is split on over ``tp``
+    model ranks, or None (kept whole): JAX's ``tp_sharding`` rule
+    (``mesh.tp_axis``) on the tensor's flax shape."""
+    return _port_dims(task, lambda shape: mesh.tp_axis(shape, tp), trained_only=False)
 
 
 def as_raw(batch) -> dict:
@@ -243,16 +298,44 @@ class Trainer:
         self._whole = []  # trained tensors FSDP keeps whole: gradients averaged in _step_core
         self._corr = getattr(cfg, "correspondence", False)
         self._music = getattr(cfg, "datatype", "outdoor") == "music"
-        refuse_tensor_parallel(self.config)
+        self._replicated = []  # under tensor parallelism: the trained tensors kept whole, then the BN statistics
+        self._stats = []
+        self.own_steps = None  # a list: each step's own loss terms and digest, before broadcast_model_
+        tp = self.config.parallel.tensor_parallel
+        check_tensor_parallel(self.config, cfg)
+        if tp > 1:
+            mesh.make_grid(tp)
+            self._split()
         if mesh.active():
             self._distribute()
+
+    def _split(self) -> None:
+        """Tensor parallelism: keep the model rank's block of every kernel
+        ``tp_dims`` splits, and take model rank 0's replicated tensors."""
+        task = self.task
+        inside = {id(p) for m in task.split_modules() for p in m.parameters()}
+        for p, dim in tp_dims(task, mesh.model_world()).items():
+            if dim is None:
+                continue
+            if id(p) not in inside:
+                raise NotImplementedError(f"JAX splits a kernel of shape {tuple(p.shape)} outside "
+                                          f"{type(task).__name__}.split_modules()")
+            mesh.split_(p, dim)
+        with torch.no_grad():
+            whole = [t for t in (*task.parameters(), *task.buffers()) if mesh.tp_dim(t) is None]
+            for dtype in sorted({t.dtype for t in whole}, key=str):  # the same order on every rank
+                mesh.broadcast_model_([t for t in whole if t.dtype == dtype])
+        self._replicated = [p for p in task.parameters() if p.requires_grad and mesh.tp_dim(p) is None]
+        self._stats = [b for b in task.buffers() if b.dtype == torch.float32]
 
     def _distribute(self) -> None:
         """A rank of a group (of one, too): wrap the task in DDP, or shard
         the modules it trains with FSDP2 (``parallel.fsdp``)."""
         task = self.task
         if not self.config.parallel.fsdp:
-            self._loss = torch.nn.parallel.DistributedDataParallel(task, broadcast_buffers=False)
+            if mesh.model_world() == 1 or mesh.data_world() > 1:  # gradients averaged over the data group
+                self._loss = torch.nn.parallel.DistributedDataParallel(task, process_group=mesh.data_group(),
+                                                                       broadcast_buffers=False)
             return
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
@@ -288,7 +371,8 @@ class Trainer:
         generator goes on past that draw, in the same state on every
         rank."""
         if eps is None:
-            eps = self.task.global_noise(rows * mesh.world() * (2 if self._corr else 1), generator, train=train)
+            eps = self.task.global_noise(rows * mesh.data_world() * (2 if self._corr else 1), generator,
+                                         train=train)
         else:
             generator = None
         if eps is None:
@@ -350,15 +434,15 @@ class Trainer:
                 raise ValueError("the music correspondence shuffle draws permutations: pass a generator")
             valid = None if train else int(raw.get("valid", clips))
             frames = batch.audio.shape[0] // clips
-            if mesh.world() > 1:  # a clip's partner is drawn from the global batch
+            if mesh.data_world() > 1:  # a clip's partner is drawn from the global batch
                 with torch.no_grad():
                     batch = Batch(*[None if x is None else mesh.all_gather_rows(x) for x in batch])
-                clips *= mesh.world()
+                clips *= mesh.data_world()
                 if valid is not None:  # the valid clips are a prefix of the global batch
                     valid = int(mesh.all_reduce_(torch.tensor(valid, device=self.device)))
             perms = preprocess.shuffle_permutations(clips, generator, valid_clips=valid, final_shuffle=train)
             batch = preprocess.correspondence_shuffle(batch, *perms, frames=frames)
-            if mesh.world() > 1:
+            if mesh.data_world() > 1:
                 batch = Batch(*[None if x is None else self._rank_rows(x, train) for x in batch])
             return batch
         if self.cfg.correspondence_video:
@@ -416,7 +500,7 @@ class Trainer:
         """Shared body of the full and cached steps; ``trunk_feat`` (cached
         features, in the storage dtype) bypasses the trunk."""
         eps, generator = self._noise(state.step, eps)
-        if mesh.world() > 1:
+        if mesh.data_world() > 1:
             eps, generator = self._rank_noise(eps, generator, _rows(raw))
         with no_tf32():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, state.step))
@@ -428,13 +512,27 @@ class Trainer:
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
             self._average_whole_grads()
+            replicated = [p.grad for p in self._replicated if p.grad is not None] + self._stats
+            if self.own_steps is not None:
+                self.own_steps.append(self._own(metrics, replicated))
+            mesh.broadcast_model_(replicated)
             state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh.world() > 1:  # each term is a mean over equal rows: the global mean is the ranks' mean
-            values = mesh.all_reduce_(torch.stack([v.float() for v in metrics.values()]), "mean")
-            metrics = dict(zip(metrics, values.unbind()))
+        if mesh.world() > 1:  # each term is a mean over equal rows: the global mean is the data ranks' mean
+            values = torch.stack([v.float() for v in metrics.values()])
+            mesh.broadcast_model_([values])
+            metrics = dict(zip(metrics, mesh.all_reduce_(values, "mean").unbind()))
         return state, metrics
+
+    @staticmethod
+    def _own(metrics: dict, tensors: list) -> dict:
+        """What this rank computed: its loss terms (over its rows) and a
+        digest of ``tensors`` (its replicated gradients and statistics)."""
+        h = hashlib.sha1()
+        for t in tensors:
+            h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return dict(metrics={k: float(v) for k, v in metrics.items()}, digest=h.hexdigest())
 
     def _trunk_features(self, raw: dict) -> torch.Tensor:
         """(B, F, 224, 298, 3) uint8 -> (B*F, 14, 19, 2048) frozen-trunk
@@ -566,8 +664,8 @@ class Trainer:
             return
         if self.qtrunk is not None:
             producer = fc.tree_fingerprint(dict(self.qtrunk.named_buffers()))
-        else:
-            producer = fc.tree_fingerprint(self.task.trunk_state())
+        else:  # split kernels gathered whole: the same store on every rank
+            producer = fc.tree_fingerprint({k: mesh.full(t) for k, t in self.task.trunk_state().items()})
         key = producer + fc.windows_fingerprint(loader) + self.cfg.cache_features_dtype
         fp = hashlib.blake2b(key.encode(), digest_size=20).hexdigest()
         cache.attach_disk(fc.DiskFeatureStore(root, fp, max_bytes=self.cfg.cache_disk_bytes))
@@ -592,7 +690,7 @@ class Trainer:
         clips of each half (JAX's ``_eval_step_impl``). Padded rows are
         selected out, not multiplied by 0: their zero acoustic frames
         normalize to NaN (JAX's jitted mask multiply comes out the same)."""
-        if mesh.world() > 1:
+        if mesh.data_world() > 1:
             eps, generator = self._rank_noise(eps, generator, _rows(raw), train=False)
         with torch.no_grad():
             batch = self._prepare(raw, generator=shuffle, train=False)
@@ -654,7 +752,7 @@ class Trainer:
             count = n if count is None else count + n
         if count is None:
             return {}
-        if mesh.world() > 1:  # every rank's valid rows: the one-device sums
+        if mesh.data_world() > 1:  # every data rank's valid rows: the one-device sums
             totals = mesh.all_reduce_(torch.stack([*sums.values(), count]))
             sums, count = dict(zip(sums, totals[:-1])), totals[-1]
         count = max(float(count), 1.0)
@@ -763,11 +861,12 @@ class Trainer:
     def _crash_checkpoint(self, state: TrainState, epoch: int, step_in_epoch: int) -> None:
         """Write ``epoch_interrupted_{epoch}.ckpt`` and its position, unless
         the fault tore the state inside the optimizer's update. On more than
-        one rank, rank 0 writes its replica under DDP; under FSDP none is
-        written, since gathering the shards needs every rank in a
-        collective, and a failing rank may never get there."""
-        if self._sharded:
-            print("no crash checkpoint written: FSDP's shards gather only with every rank", file=sys.stderr)
+        one rank, rank 0 writes its replica under DDP; under FSDP or tensor
+        parallelism none is written, since gathering the shards needs every
+        rank in a collective, and a failing rank may never get there."""
+        if self._sharded or mesh.model_world() > 1:
+            print("no crash checkpoint written: sharded or split tensors gather only with every rank",
+                  file=sys.stderr)
             return
         if not mesh.is_main():
             return
@@ -792,7 +891,7 @@ class Trainer:
             return
         raw = as_raw(raw_batch)
         eps, generator = None, eval_generator(self.cfg.seed, 0, self.device)
-        if mesh.world() > 1:
+        if mesh.data_world() > 1:
             eps, generator = self._rank_noise(None, generator, _rows(raw), train=False)
         with torch.no_grad():
             batch = self._prepare(raw, generator=data_generator(self.cfg.seed, _EVAL, 0), train=False)

@@ -67,6 +67,7 @@ from acoustic_image_generation_tpu_torch.data.preprocess import normalize_video
 from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_stats
 from acoustic_image_generation_tpu_torch.parallel import mesh
 from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask, ClassifyConfig
 from acoustic_image_generation_tpu_torch.train.trainer import Trainer, step_generator
 from torch_tmp import module_dir
 
@@ -377,29 +378,43 @@ TAKEN = {  # trained on ranks by tests/test_torch_parallel_embed.py and test_tor
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_what_waits_raises_at_two_devices(family):
     """Every family takes two devices (tests/test_torch_parallel_project.py, test_torch_parallel_classify.py);
-    what waits is tensor parallelism, item 8.1.2."""
+    what waits is their tensor parallelism, the second part of item 8.1.2."""
     cfg = pmain.config_from_args(pmain.build_parser().parse_args(FAMILIES[family] + ["--num_devices", "2"]))
     assert pmain.task_config(cfg)[1] == pmain.task_config(pmain.config_from_args(
         pmain.build_parser().parse_args(FAMILIES[family])))[1]
     tp = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, tensor_parallel=2))
-    with pytest.raises(NotImplementedError, match=r"item 8\.1\.2"):
+    with pytest.raises(NotImplementedError, match=r"item 8\.1\.2, second part"):
         pmain.task_config(tp)
 
 
 @pytest.mark.parametrize("family", sorted(TAKEN))
 def test_embedding_and_reconstruction_take_two_devices(family):
+    """... and, with tensor_parallel=2, as a (1, 2) grid (tests/test_torch_tensor_parallel_tasks.py)."""
     for flags in (["--num_devices", "2"], []):
-        pmain.task_config(pmain.config_from_args(pmain.build_parser().parse_args(TAKEN[family] + flags)))
+        cfg = pmain.config_from_args(pmain.build_parser().parse_args(TAKEN[family] + flags))
+        pmain.task_config(cfg)
+        tp = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, tensor_parallel=2))
+        assert pmain.task_config(tp) == pmain.task_config(cfg)
 
 
 def test_trainer_refuses_other_tasks_on_two_ranks(world):
     """The trainer takes the classification task and the generation task with correspondence on two ranks (each
-    trained on ranks in tests/test_torch_parallel_classify.py); tensor parallelism still raises."""
+    trained on ranks in tests/test_torch_parallel_classify.py); the generation task takes tensor parallelism
+    (tests/test_torch_tensor_parallel.py), with JAX's ValueError beside fsdp, and its correspondence augmentation
+    and the other families still raise."""
     refusals = world["ranks"][0]["refusals"]
     assert refusals == {"classification": None, "correspondence": None}
     tp = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(tensor_parallel=2))
-    with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2"):
-        pconfig.generation_config(tp)
+    assert pconfig.generation_config(tp) == pconfig.generation_config(pconfig.ExperimentConfig())
+    with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2, second part"):
+        pconfig.project_config(tp)
+    with pytest.raises(ValueError, match="fsdp and tensor_parallel are mutually exclusive"):
+        pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(tensor_parallel=2,
+                                                                                           fsdp=True)))
+    for task in (pr.task(correspondence=True), ClassificationTask(ClassifyConfig(compute_dtype="float32"),
+                                                                  device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2, second part"):
+            Trainer(task, tp)
 
 
 def test_shard_batch_cuts_rows_as_the_host_sharded_loader(world):
