@@ -46,7 +46,7 @@ decodes only its rows: a rank is one process, so the host sharding that
 JAX's ``--host_shard 1`` asks of a multi-host run is the port's one layout,
 and the flag is accepted for JAX's recipes. As JAX's parser, this one has
 no tensor-parallel flag: a configuration that carries
-``parallel.tensor_parallel = tp`` lays the N ranks out as its ``(N // tp,
+``parallel.tensor_parallel = tp`` lays the N ranks of any task out as its ``(N // tp,
 tp)`` grid, each rank's loader decoding its data rank's rows, and an N that
 ``tp`` does not divide raises before any rank starts.
 """

@@ -19,13 +19,10 @@ card the port always runs the MFCC frontend and the generator's conv pairs
 on its CUDA kernels), and the loader's tuning fields. ``ParallelConfig``'s
 ``num_devices`` and ``fsdp`` train every task on that many ranks
 (``parallel/mesh.py``; ``cli/main.py`` starts them). ``tensor_parallel =
-tp > 1`` lays them out as JAX's ``(data, model)`` mesh for the generation
-task, the embedding family and the reconstruction task; the checks are
-JAX's (``fsdp`` with it raises ``ValueError``, as does a ``num_devices``
-that ``tp`` does not divide), and the projection, joint and classification
-families and the correspondence augmentation raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1, item 8.1.2, second
-part).
+tp > 1`` lays them out as JAX's ``(data, model)`` mesh for every task, with
+or without the correspondence augmentation; the checks are JAX's (``fsdp``
+with it raises ``ValueError``, as does a ``num_devices`` that ``tp`` does
+not divide).
 """
 
 from __future__ import annotations
@@ -207,18 +204,12 @@ def _build(cls, values: dict):
     return cls(**{k: tuple(v) if k in tuples and isinstance(v, list) else v for k, v in values.items()})
 
 
-# the configurations of the tasks that do not run split yet, by the name a refusal gives them
-_WAITING = {ProjectConfig: "the projection family", JointConfig: "the joint family",
-            ClassifyConfig: "the classification family"}
-
-
-def check_tensor_parallel(config: ExperimentConfig, task_cfg) -> None:
+def check_tensor_parallel(config: ExperimentConfig) -> None:
     """JAX's checks of ``parallel.tensor_parallel`` (``Trainer.__init__``,
-    ``make_mesh``), then the port's, the one place that decides which tasks
-    run split: the task of configuration ``task_cfg`` (a
-    ``GenerationConfig``, ``EmbedConfig`` or ``ReconstructConfig``; the
-    tasks with ``split_modules``) without the correspondence
-    augmentation."""
+    ``make_mesh``), the one place that decides whether a task runs split:
+    every task family takes it, with or without the correspondence
+    augmentation (each task's ``split_modules`` holds the kernels JAX
+    splits); only these two settings raise ``ValueError``."""
     p = config.parallel
     tp = p.tensor_parallel
     if tp <= 1:
@@ -227,14 +218,6 @@ def check_tensor_parallel(config: ExperimentConfig, task_cfg) -> None:
         raise ValueError("fsdp and tensor_parallel are mutually exclusive")
     if p.num_devices is not None and p.num_devices % tp:
         raise ValueError(f"num_devices={p.num_devices} is not a multiple of tensor_parallel={tp}")
-    if config.data.correspondence or getattr(task_cfg, "correspondence", False):
-        what = "the correspondence augmentation"
-    elif isinstance(task_cfg, (GenerationConfig, EmbedConfig, ReconstructConfig)):
-        return
-    else:
-        what = _WAITING.get(type(task_cfg), type(task_cfg).__name__)
-    raise NotImplementedError(f"tensor_parallel > 1 with {what} is not ported yet (ROADMAP.md Queue 1, "
-                              f"item 8.1.2, second part)")
 
 
 def generation_config(config: ExperimentConfig) -> GenerationConfig:
@@ -270,16 +253,16 @@ def generation_config(config: ExperimentConfig) -> GenerationConfig:
 
 
 def _checked(config: ExperimentConfig, task_cfg):
-    """``task_cfg``, after ``check_tensor_parallel`` took it."""
-    check_tensor_parallel(config, task_cfg)
+    """``task_cfg``, after ``check_tensor_parallel`` took ``config``."""
+    check_tensor_parallel(config)
     return task_cfg
 
 
 def classify_config(config: ExperimentConfig, *, generated: bool = False) -> ClassifyConfig:
     """The port's ``ClassifyConfig`` of an experiment (classes and channels
     by ``data.datatype``); ``generated`` adds the frozen generator's
-    ``GenerationConfig``. Raises for what ``generation_config`` refuses,
-    and for tensor parallelism."""
+    ``GenerationConfig``. Raises for what ``generation_config``
+    refuses."""
     gen = generation_config(config)
     d = config.data
     return _checked(config, ClassifyConfig(

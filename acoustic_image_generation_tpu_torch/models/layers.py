@@ -19,7 +19,10 @@ the output channels, dim 0 or dim 1) runs as a column-parallel layer:
 channels with their slice of the bias (added before the output's one
 rounding, as one device adds it), then ``gather_channels``. The bias stays
 whole and replicated, as JAX keeps 1-D leaves: each peer's gradient of it
-covers its slice, and ``sum_input_grad`` sums them into the whole one.
+covers its slice, and ``sum_input_grad`` sums them into the whole one. A
+frozen split layer (no gradient of its own) still sums its input's
+gradient where the input requires one: the joint task's frozen video
+decoder passes the trained associator its whole gradient.
 
 ``reset_parameters(generator)`` draws the JAX initializers' distributions
 from a CPU ``torch.Generator``: glorot-uniform (``tf.layers`` and

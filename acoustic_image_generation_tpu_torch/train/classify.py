@@ -30,7 +30,10 @@ the global batch (doubled on the rank by the correspondence augmentation):
 the cross-entropy and the accuracy are rank means over equal clips, which
 the trainer averages, and ``evaluate`` sums the per-clip terms and counts
 over the ranks. The generated task's VAE noise is drawn at the global frame
-count and cut to the rank's rows (``global_noise``).
+count and cut to the rank's rows (``global_noise``). Under tensor
+parallelism the generated task's frozen trunk holds its wide convs' blocks
+of output channels on each rank of a model group (``split_modules``); the
+other two tasks split nothing.
 """
 
 from __future__ import annotations
@@ -115,6 +118,13 @@ class ClassificationTask(nn.Module):
         DualCamNet."""
         return (self.dualcamnet,)
 
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """Under tensor parallelism (``parallel/mesh.py``): none. JAX's
+        ``tp_sharding`` splits no kernel of DualCamNet (12 to 128 channels,
+        a 5-D temporal conv), so the grid only decides which ranks share
+        rows."""
+        return ()
+
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
         """None: DualCamNet on real or tiled-MFCC images draws nothing."""
         return None
@@ -185,6 +195,12 @@ class GeneratedClassificationTask(ClassificationTask):
         ``param_labels``)."""
         return {name: "train" if name.split(".")[0] == "dualcamnet" else "frozen"
                 for name, _ in self.named_parameters()}
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The frozen generation task's trunk, under JAX's top-level key:
+        its convs of 256 to 2048 outputs are split as the generation
+        task's are, and run forward only, in eval mode."""
+        return (self.resnet,)
 
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> torch.Tensor | None:
         """The frozen generator's VAE noise for a global batch of ``frames``

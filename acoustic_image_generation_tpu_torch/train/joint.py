@@ -38,7 +38,10 @@ does (``global_noise``): the moddrop flag, one draw for the whole batch,
 which every rank keeps whole (``shared_draws``), then the stage-2 noise at
 the global shape, of which each rank keeps its rows. The loss terms are
 rank means over equal rows, which the trainer averages; no trained layer
-couples rows.
+couples rows. Under tensor parallelism the frozen video VAE's wide convs
+and the audio VAE's head hold their block of the output channels on each
+rank of a model group (``split_modules``), and the peers, which hold the
+same rows, keep the same moddrop flag and stage-2 draws.
 """
 
 from __future__ import annotations
@@ -123,6 +126,18 @@ class JointTask(nn.Module):
         """The modules whose parameters train (FSDP shards each): the trained
         associator."""
         return (getattr(self, self.trained),)
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The modules that hold every kernel JAX's ``tp_sharding`` splits
+        under tensor parallelism (``parallel/mesh.py``): the frozen video
+        VAE's 13 wide convs and the frozen audio VAE's head (its
+        256-channel mean and std). Their stage 2 runs on the fused maps, so
+        in a train step the gradient goes back through the split heads and
+        the video decoder to the associator: each split conv sums its
+        input's gradient over the model group (``sum_input_grad``), with no
+        weight gradient. The acoustic VAE and ``JointMVAE`` (dense) stay
+        whole."""
+        return self.video, self.audio
 
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> dict:
         """The step's draws for a global batch of ``frames`` frames, in one

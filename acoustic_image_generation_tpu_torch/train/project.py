@@ -43,7 +43,10 @@ train-mode BN statistics (``models/layers.py``); ``triplet_all`` over
 by ``mesh.all_gather_rows``; the two noise draws, which the trainer draws
 at the global shape (``global_noise``) and cuts to the rank's rows. The
 reconstruction, KL and ``l2`` terms are rank means over equal rows, which
-the trainer averages.
+the trainer averages. Under tensor parallelism the frozen video VAE's wide
+convs and the audio VAE's head hold their block of the output channels on
+each rank of a model group (``split_modules``); the rows, the gathers of
+the triplet and the statistics are the data group's.
 """
 
 from __future__ import annotations
@@ -148,6 +151,15 @@ class ProjectTask(nn.Module):
         """The modules whose parameters train (FSDP shards each): the
         wiring's associators."""
         return tuple(m for n, m in self.named_children() if n.startswith("assoc"))
+
+    def split_modules(self) -> tuple[nn.Module, ...]:
+        """The modules that hold every kernel JAX's ``tp_sharding`` splits
+        under tensor parallelism (``parallel/mesh.py``), in every wiring
+        (JAX's tree holds them even where the wiring never runs them): the
+        frozen video VAE's 13 wide convs and the frozen audio VAE's head
+        (its 256-channel mean and std). They run forward only. The acoustic
+        VAE and the associators (at most 150 outputs) stay whole."""
+        return self.video, self.audio
 
     def global_noise(self, frames: int, generator: torch.Generator, *, train: bool = True) -> dict:
         """The step's noise for a global batch of ``frames`` frames, as one

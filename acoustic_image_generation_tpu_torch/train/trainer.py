@@ -94,17 +94,20 @@ gathered (``mesh.all_gather_rows``), and each rank keeps its clips of the
 shuffled batch (in eval, its clips of each half, whose valid prefix the
 mask counts). With one process nothing of this runs.
 
-With ``parallel.tensor_parallel = tp > 1`` (the generation task, the
-embedding family and the reconstruction task: those with
-``split_modules``) the ``N`` ranks form JAX's ``(data = N // tp, model =
-tp)`` grid (``mesh.make_grid``): rank ``r`` at data index ``r // tp`` and
-model index ``r % tp``. The task is built whole on every rank (the same
-seed, or ``bridge.load_flax``); the trainer then keeps, of every kernel
-JAX's ``tp_sharding`` splits (``tp_dims``: a 4-D kernel of at least 256
-output channels that ``tp`` divides, all inside ``split_modules``), the
-model rank's block of output channels (``mesh.split_``), so that its Adam
-slots hold that block too, and gives model rank 0's replicated tensors to
-its peers. The split convs run as column-parallel layers
+With ``parallel.tensor_parallel = tp > 1`` (every task, with or without
+the correspondence augmentation) the ``N`` ranks form JAX's ``(data = N //
+tp, model = tp)`` grid (``mesh.make_grid``): rank ``r`` at data index ``r //
+tp`` and model index ``r % tp``. The task is built whole on every rank (the
+same seed, or ``bridge.load_flax``); the trainer then keeps, of every
+kernel JAX's ``tp_sharding`` splits (``tp_dims``: a 4-D kernel of at least
+256 output channels that ``tp`` divides, trained or frozen, all inside the
+task's ``split_modules``: the generation trunk, the video VAE, the audio
+VAE's head), the model rank's block of output channels (``mesh.split_``),
+so that the Adam slots of a trained one hold that block too (a frozen one
+has none), and gives model rank 0's replicated tensors to its peers. A
+task without such kernels (DualCamNet's, the ``Ac``, ``Energy`` and
+``Audio`` reconstructions) only has its grid decide which ranks share
+rows. The split convs run as column-parallel layers
 (``models/layers.py``, ``models/resnet.py``); everything else runs
 replicated on the peers of a model group, which hold the same rows and
 draw the same noise: the rows, the noise, the BN statistics, the row
@@ -128,13 +131,13 @@ under FSDP: the gather needs every peer, and a failing rank may never get
 there. The feature cache's decisions depend only on the rows, the same on
 the peers of a model group, so they hit and miss together (a trunk run on
 one peer alone would hang in its gathers); every peer writes the disk
-tier's files, the same bytes, through its atomic replace.
-``core/config.py::check_tensor_parallel`` decides, from the task's
-configuration, which tasks run split: ``fsdp`` with ``tensor_parallel >
-1`` raises ``ValueError``, as JAX's trainer does; the projection, joint and
-classification families and the correspondence augmentation raise
-``NotImplementedError`` (``ROADMAP.md`` Queue 1, item 8.1.2, second
-part).
+tier's files, the same bytes, through its atomic replace. The
+correspondence augmentation cuts and gathers over the data group as well:
+the peers of a model group double the same rows and draw the music
+shuffle's permutations at the data group's clip count from the same
+generator. ``core/config.py::check_tensor_parallel`` holds JAX's checks:
+``fsdp`` with ``tensor_parallel > 1`` raises ``ValueError``, as does a
+``num_devices`` that ``tp`` does not divide.
 
 RNG: the noise of step ``s`` (the VAE noise; the embedding task's shared
 ``eps`` and moddrop draws) comes from one ``torch.Generator`` seeded from
@@ -201,12 +204,13 @@ def _port_dims(task: torch.nn.Module, rule, trained_only: bool) -> dict:
     """The port dim of each parameter of ``task`` (the trained ones with
     ``trained_only``) on which ``rule`` (flax shape -> flax axis or None)
     puts it, mapped through its layout (``bridge.flax_layout``), or None.
-    Keyed by the tensor."""
+    Keyed by the tensor; a tensor split already is read at its whole
+    shape."""
     out = {}
     for tensor, coll, path, fn in bridge.targets(task):
         if coll != "params" or (trained_only and not tensor.requires_grad):
             continue
-        shape, axes = bridge.flax_layout(fn, tuple(tensor.shape))
+        shape, axes = bridge.flax_layout(fn, mesh.whole_shape(tensor))
         axis = rule(shape)
         if axis is not None and axes[axis] is None:
             raise ValueError(f"{'/'.join(path)}: JAX's rule takes flax axis {axis}, which is not one axis of the "
@@ -302,7 +306,7 @@ class Trainer:
         self._stats = []
         self.own_steps = None  # a list: each step's own loss terms and digest, before broadcast_model_
         tp = self.config.parallel.tensor_parallel
-        check_tensor_parallel(self.config, cfg)
+        check_tensor_parallel(self.config)
         if tp > 1:
             mesh.make_grid(tp)
             self._split()
@@ -311,11 +315,13 @@ class Trainer:
 
     def _split(self) -> None:
         """Tensor parallelism: keep the model rank's block of every kernel
-        ``tp_dims`` splits, and take model rank 0's replicated tensors."""
+        ``tp_dims`` splits, and take model rank 0's replicated tensors. A
+        kernel split already (a frozen module that an earlier trainer's
+        task shares with this one) keeps its block."""
         task = self.task
         inside = {id(p) for m in task.split_modules() for p in m.parameters()}
         for p, dim in tp_dims(task, mesh.model_world()).items():
-            if dim is None:
+            if dim is None or mesh.tp_dim(p) == dim:
                 continue
             if id(p) not in inside:
                 raise NotImplementedError(f"JAX splits a kernel of shape {tuple(p.shape)} outside "

@@ -246,8 +246,13 @@ failure:
    generation task at 8 clips (train-mode BN with ``fused_bn_stats``, the
    frozen trunk, the int8 trunk) as ``(1, 2)`` and train-mode BN as ``(2,
    2)``, the embedding family at 8 clips and the ``Video`` reconstruction at
-   4 as ``(1, 2)``, the ranks sharing the card over gloo (and ``(1, 2)``
-   over NCCL on a machine with two cards or more); one step a case, held
+   4 as ``(1, 2)``; the projection's ``Video`` wiring and the joint task
+   with ``moddrop`` at 8 clips, the generated classifier at 2 and the
+   generation task with the correspondence augmentation (the silence map,
+   the frozen trunk) at 2, doubled to 4, as ``(1, 2)``, and the music
+   shuffle (DualCamNet, f32) at 8 as ``(2, 2)``; the ranks sharing the card
+   over gloo (and ``(1, 2)`` over NCCL on a machine with two cards or
+   more); one step a case, held
    against one process (loss and terms, Adam's first moment in L2 a module,
    BN running averages, updates), its ranks bit-equal in every replicated
    tensor, each rank's launches a step one process's, the split weights and
@@ -4111,6 +4116,7 @@ PAR_STEPS = 2  # step 1 held against one process, step 2 against PAR_TASK_LATER_
 PAR_PER_STEP = {"mfcc": 1, "conv_chain": 12, "conv_chain_backward": 29}  # a rank's launches a step
 PAR_CASES = {  # GenerationConfig of each case, and whether the trunk's 1x1 convs run on matmul_stats
     "train_bn": (dict(trunk_bn="train"), True),
+    "corr": (dict(trunk_bn="frozen", correspondence=True), False),  # phase 18 alone
     "frozen": (dict(trunk_bn="frozen"), False),
     "int8": (dict(trunk_bn="frozen", trunk_quant="int8", fused_qgemm=True), False),
     "cached": (dict(trunk_bn="frozen", cache_trunk_features=True), False),
@@ -4354,7 +4360,7 @@ PAR_TASKS = {
 }
 PAR_F32_ONLY = {"music": ("classify", "music", 8)}  # the music shuffle (13 channels), in f32 alone
 PAR_TASK_F32 = {"embed": 4, "Ac": 4, "project": 4, "joint": 4, "music": 8}  # the f32 cases and their global clips
-PAR_READS_VIDEO = ("embed", "Video", "joint", "generated")  # the others' batches carry a placeholder
+PAR_READS_VIDEO = ("embed", "Video", "joint", "generated", "project Video")  # the others' carry a placeholder
 PAR_UNSHARDED = ("Energy", "DualCamNet", "generated", "correspondence", "music")  # JAX shards none of their leaves
 # Two ranks against one process, after step 1 (the same weights, the split batch):
 # - the loss, relative: f32 at the generation cases' PAR_LOSS_REL; bf16 at the CPU tests' 1e-4, since each rank's
@@ -4499,7 +4505,7 @@ def par_task_trainer(name: str, dtype: str, fsdp: bool = False, tp: int = 1):
     from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
     from acoustic_image_generation_tpu_torch.train.trainer import Trainer
 
-    family, config, _ = {**PAR_TASKS, **PAR_F32_ONLY}[name]
+    family, config, _ = {**PAR_TASKS, **PAR_F32_ONLY, **TP_ONLY_TASKS}[name]
     device = mesh.device() or "cuda"
     if family == "embed":
         task = EmbedTask(EmbedConfig(compute_dtype=dtype, seed=SEED), device=device).init_params(SEED)
@@ -5173,28 +5179,45 @@ def convert_phase(counters: dict, root: Path) -> dict:
 # - the generation task at 8 clips (96 frames), bf16: train-mode BN with fused_bn_stats (matmul_stats on a rank's
 #   local columns), the frozen trunk, the int8 trunk (whole on every rank); at (1, 2), and train-mode BN at (2, 2);
 # - the embedding family at 8 clips and the Video reconstruction at 4, at (1, 2): the video VAE's wide convs are
-#   split and trained, so their backward runs through both collectives and their Adam slots are split too.
+#   split and trained, so their backward runs through both collectives and their Adam slots are split too;
+# - the other families, bf16 at (1, 2): the projection's Video wiring and the joint task with moddrop at 8 clips
+#   (their frozen video VAE's 13 wide convs and audio VAE's 256-channel head split; the projection runs the split
+#   encoder and head forward, the joint task's gradient goes back through the split video and audio stage 2 to the
+#   trained associator), the generated classifier at 2 clips (its frozen ResNet50 trunk split, eval mode) and the
+#   generation task with the correspondence augmentation at 2 clips (the silence map, trunk_bn="frozen"; the split
+#   trunk on the doubled batch of 4; one sosfilt launch a step);
+# - the music shuffle (DualCamNet, f32, nothing split) at 8 clips at (2, 2): a data group of two ranks gathers the
+#   rows it shuffles, and the peers of each model group draw the same permutations.
 TP = 2
 TP_STEPS = 1  # held after step 1
 TP_GEN_CLIPS = 8
 TP_GEN = {"train_bn": {"matmul_stats": 36}, "frozen": {}, "int8": {"qgemm_s8": 36}}  # a rank's extra launches a step
-TP_TASKS = {"embed": 8, "Video": 4}  # clips of the global batch, bf16
+TP_CORR_CLIPS = {"corr": 2}  # the generation task with the correspondence augmentation: clips before the doubling
+TP_TASKS = {"embed": 8, "Video": 4, "project Video": 8, "joint": 8, "generated": 2, "music": 8}  # global clips
+TP_ONLY_TASKS = {"project Video": ("project", dict(encoder_type="Video"), 8)}  # par_task_trainer's, phase 18 alone
 # the embedding step also in f32: its video VAE's split convs (ConvTransposeTF among them) without bf16 rounding
-# (the CPU tests hold Video's in f32 against JAX's mesh)
-TP_F32 = ("embed f32",)
+# (the CPU tests hold Video's in f32 against JAX's mesh); the music shuffle in f32 alone, as phase 16 runs it
+TP_F32 = ("embed f32", "music")
+# the cases at (1, 2) and at (2, 2)
+TP_ONE_TWO = (*TP_GEN, *TP_CORR_CLIPS, "embed", "Video", "embed f32", "project Video", "joint", "generated")
+TP_TWO_TWO = ("train_bn", "music")
 # JAX splits these kernels of each case's task (tests/test_torch_tensor_parallel*.py hold the rule on the CPU)
-TP_SPLIT = {"train_bn": 38, "frozen": 38, "int8": 38, "embed": 11, "Video": 13}
-# Phase 16's limits hold every case but two bf16 ones, which get their own: a split conv's output channels go
+TP_SPLIT = {"train_bn": 38, "frozen": 38, "int8": 38, "corr": 38, "embed": 11, "Video": 13, "project": 15,
+            "joint": 15, "generated": 38, "music": 0}
+# Phase 16's limits hold every case but three bf16 ones, which get their own: a split conv's output channels go
 # through other cuDNN algorithms than the whole conv's, so their bf16 roundings differ, and the video VAE's
-# train-mode BNs magnify that. Read on an H100 80GB HBM3 at 700 W, the same in three runs: the embedding step's loss 3.21e-4
-# from one process's (phase 16's 1e-4), the Video reconstruction's gradient 0.292 in L2 (phase 16's 0.25). The
-# fault these checks are for gives a gradient a whole multiple off: 2x reads 1.0 in L2 (a gather_channels backward
-# that sums the replicated gradient read 2043 and 4096 on the CPU), so 0.45 lies between the two; a forward fault
-# (a wrong gather) moves the loss by far more than 1e-3. The f32 cases hold phase 16's f32 limits, which show that
-# the split path computes what one process does; one process's bf16 distance from its f32 run is logged beside
-# (the embedding step's; Video's was 0.54 in L2 on the gradient).
-TP_LOSS_REL = {"embed": 1e-3}
-TP_GRAD_TOL = {"Video": {"model": 0.45}}
+# train-mode BNs magnify that. Read on an H100 80GB HBM3 at 700 W, the same in three runs: the embedding step's loss
+# 3.21e-4 from one process's (phase 16's 1e-4), the Video reconstruction's gradient 0.292 in L2 (phase 16's 0.25).
+# The projection's Video wiring reads its frozen split video encoder's bf16 roundings through the associator and
+# the triplet: loss 1.864e-4 (phase 16's 1e-4) and assoc_video's gradient 4.559e-2 in L2, 0.91 of phase 16's 5e-2
+# (one run). The fault these checks are for gives a gradient a whole multiple off: 2x reads 1.0 in L2 (a
+# gather_channels backward that sums the replicated gradient read 2043 and 4096 on the CPU; a doubled
+# sum_input_grad under the joint task's frozen stage 2 0.99, a skipped one 0.54), so 0.45 and 0.25 lie between the
+# sound reads and the fault's; a forward fault (a wrong gather) moves the loss by far more than 1e-3. The f32 cases
+# hold phase 16's f32 limits, which show that the split path computes what one process does; one process's bf16
+# distance from its f32 run is logged beside (the embedding step's; Video's was 0.54 in L2 on the gradient).
+TP_LOSS_REL = {"embed": 1e-3, "project Video": 1e-3}
+TP_GRAD_TOL = {"Video": {"model": 0.45}, "project Video": {"assoc_video": 0.25}}
 
 def tp_split(trainer, state) -> dict:
     """What a rank holds of the split tensors: the bytes of the split
@@ -5273,11 +5296,11 @@ def tp_steps(case: str, tp: int = 1, label: str = "", keep_init: bool = False, c
     with ``clock`` (``tp_clock``) the collectives' time and bytes a step."""
     from acoustic_image_generation_tpu_torch.parallel import mesh
 
-    if case in TP_GEN:
+    if case in TP_GEN or case in TP_CORR_CLIPS:
         trainer = par_trainer(SEED, case, tp=tp)
-        batches = par_batches(SEED + 50, TP_GEN_CLIPS)[:TP_STEPS]
+        batches = par_batches(SEED + 50, TP_CORR_CLIPS.get(case, TP_GEN_CLIPS))[:TP_STEPS]
     else:
-        name = case.split()[0]
+        name = case.removesuffix(" f32")
         trainer = par_task_trainer(name, "float32" if case in TP_F32 else "bfloat16", tp=tp)
         batches = [{k: mesh.shard_rows(v) for k, v in par_task_batch(name, TP_TASKS[name]).items()}] * TP_STEPS
     trainer.own_steps = []
@@ -5388,23 +5411,25 @@ def tp_check(label: str, ranks: list, ref: dict, init: dict, case: str, failed: 
 
 def tensor_parallel_phase() -> dict:
     """Phase 18: tensor parallelism at full width (ResNet50 3/4/6/3, the
-    full video VAE), bf16, random weights from the seed: one process's runs
-    of every case, then two ranks sharing the card as ``(1, 2)`` and four as
-    ``(2, 2)`` over gloo, and with ``TP`` cards or more ``(1, TP)`` over
-    NCCL, each held against one process after step 1
-    (``tp_check``). Returns rank 0's launches over the phase's grids."""
+    full video VAE), bf16 (the music shuffle f32), random weights from the
+    seed: one process's runs of every case, then two ranks sharing the card
+    as ``(1, 2)`` (``TP_ONE_TWO``) and four as ``(2, 2)`` (``TP_TWO_TWO``)
+    over gloo, and with ``TP`` cards or more ``(1, TP)`` over NCCL, each
+    held against one process after step 1 (``tp_check``). Returns rank 0's
+    launches over the phase's grids."""
     from acoustic_image_generation_tpu_torch.parallel import mesh
 
     t_phase = time.perf_counter()
     plain, init = {}, {}
-    for case in (*TP_GEN, *TP_TASKS, *TP_F32):
+    for case in dict.fromkeys((*TP_ONE_TWO, *TP_TWO_TWO)):
         plain[case] = tp_steps(case, label=f"tp one process {case}", keep_init=True)
         init[case] = plain[case].pop("init")
+    log(f"tp: the one-process runs took {time.perf_counter() - t_phase:.1f} s")
     t_ranks = time.perf_counter()
-    grids = {"(1, 2) gloo": mesh.launch(tp_ranks, TP, (*TP_GEN, *TP_TASKS, *TP_F32), "gloo", device="cuda:0")}
+    grids = {"(1, 2) gloo": mesh.launch(tp_ranks, TP, TP_ONE_TWO, "gloo", device="cuda:0")}
     log(f"tp: the (1, 2) grid's runs took {time.perf_counter() - t_ranks:.1f} s")
     t_ranks = time.perf_counter()
-    grids["(2, 2) gloo"] = mesh.launch(tp_ranks, 2 * TP, ("train_bn",), "gloo", device="cuda:0")
+    grids["(2, 2) gloo"] = mesh.launch(tp_ranks, 2 * TP, TP_TWO_TWO, "gloo", device="cuda:0")
     log(f"tp: the (2, 2) grid's runs took {time.perf_counter() - t_ranks:.1f} s")
     if torch.cuda.device_count() >= TP:
         grids[f"(1, {TP}) nccl"] = mesh.launch(tp_ranks, TP, ("train_bn",), "nccl", device="cuda")
@@ -5415,7 +5440,7 @@ def tensor_parallel_phase() -> dict:
     for grid, ranks in grids.items():
         for case in ranks[0]:
             tp_check(f"tp {grid} {case}", [r[case] for r in ranks], plain[case], init[case], case, failed,
-                     plain.get(f"{case} f32") if case in TP_TASKS else None)
+                     plain.get(f"{case} f32") if f"{case} f32" in TP_F32 else None)
     log(f"tp: phase 18 took {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise AssertionError("; ".join(failed))
@@ -5560,8 +5585,8 @@ def main() -> int:
                       help="only run phase 17: raw captures through the converter tools, DualCamNet on the "
                            "converted shards, the TUT loader and profiling")
     only.add_argument("--tensor-parallel", action="store_const", const="tensor_parallel", dest="only",
-                      help="only run phase 18: tensor parallelism of the generation task, the embedding family and "
-                           "the Video reconstruction on (data, model) grids of ranks")
+                      help="only run phase 18: tensor parallelism of every task family, with the correspondence "
+                           "augmentation, on (data, model) grids of ranks")
     only.add_argument("--serving", action="store_const", const="serving", dest="only",
                       help="only run phase 15: serving artifacts, HTTP, the artifact CLI, the box sweep, the "
                            "render step and optax's Adam")

@@ -3,6 +3,8 @@
 import them from here; they import the port only, never JAX). Each takes a
 plain dict and returns one of numpy arrays and numbers."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -112,15 +114,20 @@ def run_cases(spec: dict) -> dict:
     out["eval"] = dict(sums=ae.evaluate(ae.init_state(), loader, use_cache=False),
                        valid=[b.valid for b in loader.batches(0)])
 
-    # what waits raises, with its reason
+    # the trainer takes the other tasks: under DDP, and with tensor_parallel=2 as a (1, 2) grid
     refusals = {}
-    for name, make in (("classification", lambda: ClassificationTask(ClassifyConfig(compute_dtype="float32"),
-                                                                       device="cpu")),
-                       ("correspondence", lambda: task(correspondence=True))):
+    makers = (("classification", lambda: ClassificationTask(ClassifyConfig(compute_dtype="float32"), device="cpu")),
+              ("correspondence", lambda: task(correspondence=True)))
+    for name, make in makers:
         try:
             Trainer(make(), config())
             refusals[name] = None
         except NotImplementedError as e:
             refusals[name] = str(e)
     out["refusals"] = refusals
+    tp = dataclasses.replace(config(), parallel=dataclasses.replace(config().parallel, tensor_parallel=2))
+    out["tensor_parallel"] = {}
+    for name, make in makers:
+        trainer = Trainer(make(), tp)
+        out["tensor_parallel"][name] = sum(mesh.tp_dim(p) is not None for p in trainer.task.parameters())
     return out

@@ -1,16 +1,22 @@
-"""The rank bodies of ``tests/test_torch_tensor_parallel.py`` and
-``tests/test_torch_tensor_parallel_tasks.py``: functions that
+"""The rank bodies of ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tensor_parallel_tasks.py``,
+``tests/test_torch_tensor_parallel_families.py`` and
+``tests/test_torch_tensor_parallel_correspondence.py``: functions that
 ``mesh.launch`` runs on each CPU rank over gloo, the ranks laid out as a
 ``(data, model)`` grid with ``tensor_parallel=2`` (spawned processes import
 them from here; they import the port only, never JAX). Each takes a plain
 dict and returns one of numpy arrays and numbers."""
 
+import dataclasses
 import hashlib
 import os
+import pickle
+import time
 
 import numpy as np
 import torch
 
+import parallel_family_ranks as pfr
 import parallel_ranks as pr
 from acoustic_image_generation_tpu_torch import bridge
 from acoustic_image_generation_tpu_torch.core.config import (
@@ -19,12 +25,18 @@ from acoustic_image_generation_tpu_torch.core.config import (
     ParallelConfig,
     RunConfig,
 )
-from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader
+from acoustic_image_generation_tpu_torch.data import AcousticImageDataLoader, preprocess
 from acoustic_image_generation_tpu_torch.models.layers import Conv2d, ConvTransposeTF
 from acoustic_image_generation_tpu_torch.parallel import mesh
+from acoustic_image_generation_tpu_torch.train import checkpoint as ckpt
+from acoustic_image_generation_tpu_torch.train.classify import ClassifyConfig, CorrespondenceTask
 from acoustic_image_generation_tpu_torch.train.embed import EmbedConfig, EmbedTask
+from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+from acoustic_image_generation_tpu_torch.train.joint import JointConfig, JointTask
+from acoustic_image_generation_tpu_torch.train.project import ProjectConfig, ProjectTask
 from acoustic_image_generation_tpu_torch.train.reconstruct import ReconstructConfig, ReconstructTask
-from acoustic_image_generation_tpu_torch.train.trainer import Trainer
+from acoustic_image_generation_tpu_torch.train.trainer import Trainer, step_generator
+from acoustic_image_generation_tpu_torch.train.warmstart import apply_init_checkpoints
 
 TP = 2
 LR = pr.LR
@@ -45,9 +57,10 @@ def local(raw: dict) -> dict:
 def layout(trainer: Trainer, state) -> dict:
     """The rank's split tensors and what it holds of them: each split
     parameter's local shape and dim, the bytes of the split parameters and
-    of their Adam slots on this rank and whole, and a digest of every
-    replicated tensor (parameters, BN statistics, Adam slots), which the
-    peers must hold bit for bit."""
+    of their Adam slots on this rank and whole, the frozen parameters that
+    have Adam slots (none should), and a digest of every replicated tensor
+    (parameters, BN statistics, Adam slots), which the peers must hold bit
+    for bit."""
     opt = state.optimizer.state
     split, local_bytes, whole_bytes, slot_bytes, whole_slot_bytes = {}, 0, 0, 0, 0
     h = hashlib.sha1()
@@ -63,8 +76,9 @@ def layout(trainer: Trainer, state) -> dict:
         whole_bytes += int(np.prod(mesh.whole_shape(t))) * t.element_size()
         slot_bytes += sum(s.numel() * s.element_size() for s in slots)
         whole_slot_bytes += len(slots) * int(np.prod(mesh.whole_shape(t))) * t.element_size()
+    frozen_slots = sorted(n for n, p in trainer.task.named_parameters() if not p.requires_grad and p in opt)
     return dict(split=split, bytes=local_bytes, whole_bytes=whole_bytes, slot_bytes=slot_bytes,
-                whole_slot_bytes=whole_slot_bytes, replicated=h.hexdigest(),
+                whole_slot_bytes=whole_slot_bytes, frozen_slots=frozen_slots, replicated=h.hexdigest(),
                 grid=(mesh.data_rank(), mesh.model_rank(), mesh.data_world(), mesh.model_world()))
 
 
@@ -178,12 +192,12 @@ def reconstruct_task(kind: str, init) -> ReconstructTask:
     return task
 
 
-def task_summary(trainer, state, metrics, keep: str) -> dict:
+def task_summary(trainer, state, metrics, keep: tuple) -> dict:
     """A run of one of the other tasks: its metrics and layout; the BN
-    running averages; on model rank 0 the parameters and Adam's first
-    moments of the top-level module ``keep``, whole, in the flax layout
-    (every rank gathers), each sampled as ``parallel_task_ranks.sampled``
-    does."""
+    running averages; on model rank 0 the trained parameters and their
+    Adam first moments under the top-level modules ``keep``, whole, in the
+    flax layout (every rank gathers), each sampled as
+    ``parallel_task_ranks.sampled`` does."""
     from parallel_task_ranks import sampled
 
     stats, params, mu = {}, {}, {}
@@ -192,7 +206,7 @@ def task_summary(trainer, state, metrics, keep: str) -> dict:
         key = "/".join(path)
         if coll == "batch_stats":
             stats[key] = flax(fn, tensor)
-        elif path[0] == keep:
+        elif path[0] in keep and tensor.requires_grad:
             whole = mesh.full(tensor)
             m = mesh.full(state.optimizer.state[tensor]["m"], like=tensor)
             if mesh.is_main():
@@ -218,7 +232,214 @@ def task_cases(spec: dict) -> dict:
         for raw in case["raws"]:
             state, m = trainer.train_step(state, local(raw), eps=case["eps"], moddrop=case.get("moddrop"))
             metrics.append({k: float(v) for k, v in m.items()})
-        out[name] = task_summary(trainer, state, metrics, "video" if name == "embed" else "model")
+        out[name] = task_summary(trainer, state, metrics, ("video",) if name == "embed" else ("model",))
         out[name]["own"] = trainer.own_steps
         del trainer, state, task
+    return out
+
+
+# ------------------------------- the projection, joint and classification families, the correspondence augmentation
+
+CORRESPONDENCE = {  # tests/test_torch_tensor_parallel_correspondence.py's cases: the task's configuration
+    "generation augment": dict(resnet_units=pr.UNITS, trunk_bn="frozen", correspondence=True),
+    "generation no_video": dict(resnet_units=pr.UNITS, trunk_bn="frozen", correspondence=True,
+                                correspondence_video=True),
+    "augment": dict(correspondence=True),
+    "music": dict(correspondence=True, datatype="music", num_channels=13, num_classes=9),
+}
+TRAINED = {"project Video": ("assoc_video",), "project Audio": ("assoc_audio_enc",), "joint moddrop": ("associator",),
+           "joint onlyaudiovideo": ("associator1",), "classify generated": ("dualcamnet",),
+           "classify real": ("dualcamnet",), "generation augment": ("resnet", "generator"),
+           "generation no_video": ("resnet", "generator"), "augment": ("dualcamnet",), "music": ("dualcamnet",)}
+
+
+def case_task(case: str, init):
+    """A case's task, whole, from the flax trees ``init`` (``None``: left
+    uninitialized): ``project <wiring>``, ``joint <mode>`` and ``classify
+    <name>`` as ``parallel_family_ranks`` builds them (each with its own
+    frozen VAEs: its trainer splits them), or a case of
+    ``CORRESPONDENCE``."""
+    family, _, name = case.partition(" ")
+    if family == "classify":
+        return pfr.classify_task(name, init)
+    if family == "project":
+        task = ProjectTask(ProjectConfig(compute_dtype="float32", learning_rate=LR, **pfr.PROJECT[name]), device="cpu")
+    elif family == "joint":
+        task = JointTask(JointConfig(compute_dtype="float32", learning_rate=LR, **pfr.JOINT[name]), device="cpu")
+    elif family == "generation":
+        task = GenerationTask(GenerationConfig(compute_dtype="float32", learning_rate=LR, **CORRESPONDENCE[case]),
+                              device="cpu")
+    else:
+        task = CorrespondenceTask(ClassifyConfig(compute_dtype="float32", learning_rate=LR, **CORRESPONDENCE[case]),
+                                  device="cpu")
+    if init is not None:
+        bridge.load_flax(task, *init)
+    return task
+
+
+def ckpt_name(case: str) -> str:
+    return case.replace(" ", "_")
+
+
+def trees_equal(a, b) -> bool:
+    """Whether two flax trees hold the same keys, shapes and values."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(trees_equal(a[k], b[k]) for k in b)
+    return np.asarray(a).shape == np.asarray(b).shape and np.array_equal(a, b)
+
+
+VAES = ("acoustic", "video", "audio")
+_VAES = {}  # this rank's frozen VAE modules, split by the first trainer and shared by the later cases
+
+
+def vae_task(case: str, init):
+    """A projection or joint case's task, whole but for its frozen VAEs:
+    the modules the first such case of this process loaded from ``init``
+    (a gigabyte, the same trees in every case; split by that case's
+    trainer, they keep their blocks in the later ones)."""
+    task = case_task(case, None)
+    params, stats = init
+    for name, module in task.named_children():
+        if name in _VAES:
+            setattr(task, name, _VAES[name])
+            continue
+        bridge.load_flax(module, params[name], stats.get(name, {}))
+        if name in VAES:
+            _VAES[name] = module
+    return task
+
+
+def warm_start(trainer, state, path: str, init: dict) -> dict:
+    """The three VAEs warm-started from the whole checkpoint at ``path``
+    (zeroed first, blocks and statistics), as the command line's
+    ``visual_``, ``acoustic_`` and ``audio_init_checkpoint`` do it: each
+    split tensor's local shape and dim, and whether the video VAE gathered
+    whole is ``init`` (its flax trees) bit for bit."""
+    with torch.no_grad():
+        for name in VAES:
+            for t in (*getattr(trainer.task, name).parameters(), *getattr(trainer.task, name).buffers()):
+                t.zero_()
+    run = RunConfig(visual_init_checkpoint=path, acoustic_init_checkpoint=path, audio_init_checkpoint=path)
+    apply_init_checkpoints(state, dataclasses.replace(config(), run=run))
+    video = trainer.task.video
+    params, stats = bridge.to_flax(video)
+    return dict(split={n: (tuple(p.shape), mesh.tp_dim(p)) for n, p in video.named_parameters()
+                       if mesh.tp_dim(p) is not None},
+                equal=trees_equal(params, init[0]["video"]) and trees_equal(stats, init[1]["video"]))
+
+
+def recording(trainer, seen: dict):
+    """Record in ``seen`` the batch the trainer's step prepares (the last
+    one) and every shuffle permutation drawn; returns what undoes the
+    latter."""
+    prepare = trainer._prepare
+
+    def prepared(*args, **kw):
+        out = prepare(*args, **kw)
+        seen["batch"] = {k: None if v is None else v.numpy() for k, v in out._asdict().items()}
+        return out
+
+    trainer._prepare = prepared
+    seen["perms"] = []
+    shuffle = preprocess.shuffle_permutations
+
+    def drawn(*args, **kw):
+        out = shuffle(*args, **kw)
+        seen["perms"].append([p.numpy() for p in out])
+        return out
+
+    preprocess.shuffle_permutations = drawn
+    return lambda: setattr(preprocess, "shuffle_permutations", shuffle)
+
+
+def grid_case(case: str, c: dict, run_dir: str, loader=None, record: bool = False, warm: str | None = None) -> tuple:
+    """One step of ``case`` on this rank's rows of ``c["raw"]`` with the
+    global noise ``c["eps"]`` (and ``c["moddrop"]``), after ``evaluate``
+    over ``loader`` where given, its VAEs warm-started from the checkpoint
+    ``warm`` where given; with ``record`` the noise the trainer draws for
+    the step (one process's draw for the global batch, doubled by the
+    correspondence augmentation, cut to the rank's rows), the batch it
+    prepares and the permutations it draws. Returns the trainer, its state
+    and the summary."""
+    task = vae_task(case, c["init"]) if case.startswith(("project", "joint")) else case_task(case, c["init"])
+    trainer = Trainer(task, config(run_dir))
+    trainer.own_steps = []
+    state = trainer.init_state()
+    seen, restore = {}, lambda: None
+    if warm is not None:
+        seen["warm"] = warm_start(trainer, state, warm, c["init"])
+    if loader is not None:
+        seen["eval"] = trainer.evaluate(state, loader, use_cache=False)
+    if record:
+        rows = c["raw"]["audio"].shape[0] * c["raw"]["audio"].shape[1] // mesh.data_world()
+        eps, _ = trainer._rank_noise(None, step_generator(0, 0, "cpu"), rows)
+        seen["eps"] = None if eps is None else eps.numpy()
+        restore = recording(trainer, seen)
+    try:
+        state, m = trainer.train_step(state, local(c["raw"]), eps=c["eps"], moddrop=c.get("moddrop"))
+    finally:
+        restore()
+    out = task_summary(trainer, state, [{k: float(v) for k, v in m.items()}], TRAINED[case])
+    out.update(seen, own=trainer.own_steps, split_paths=sorted(
+        "/".join(path) for t, coll, path, _ in bridge.targets(trainer.task)
+        if coll == "params" and mesh.tp_dim(t) is not None))
+    return trainer, state, out
+
+
+def read_inputs(spec: dict) -> dict:
+    """``spec`` and the pickled dict at ``spec["inputs"]``, which the test
+    writes (renamed into place whole) while the ranks start: the cases'
+    flax trees, batches and noise reach each rank through the file, not
+    through the spawn's pipes."""
+    while not os.path.exists(spec["inputs"]):
+        time.sleep(0.1)
+    with open(spec["inputs"], "rb") as f:
+        return dict(spec, **pickle.load(f))
+
+
+def family_cases(spec: dict) -> dict:
+    """Every case of ``test_torch_tensor_parallel_families.py`` on this rank
+    of ``(1, 2)``: a step of each from JAX's weights with JAX's noise, its
+    state written as ``epoch_<case>.ckpt`` on a background thread, as
+    ``Trainer.fit`` writes it; the ``spec["evaluate"]`` case after
+    ``evaluate`` over a remainder batch, the ``spec["warm"]`` case's VAEs
+    warm-started from the first case's checkpoint. The cases (each's flax
+    trees, batch and noise) and the remainder batches come in a pickle at
+    ``spec["inputs"]``, which the test writes while the ranks start."""
+    torch.set_num_threads(2)
+    spec = read_inputs(spec)
+    out, first = {}, None
+    saver = ckpt.AsyncCheckpointer()
+    try:
+        for case, c in spec["cases"].items():
+            loader = pfr.RankLoader(spec["eval_raws"]) if case == spec["evaluate"] else None
+            if case == spec["warm"]:  # its source written whole
+                saver.wait()
+                mesh.barrier()
+            trainer, state, out[case] = grid_case(case, c, spec["run_dir"], loader,
+                                                  warm=first if case == spec["warm"] else None)
+            path = saver.save(trainer.run_dir, ckpt_name(case), state, write=mesh.is_main())
+            first = first or path
+            del trainer, state
+    finally:
+        saver.close()
+    _VAES.clear()
+    return out
+
+
+def correspondence_cases(spec: dict) -> dict:
+    """Every case of ``test_torch_tensor_parallel_correspondence.py`` on this
+    rank of ``(2, 2)``: a step of each from JAX's weights (the generation
+    task with JAX's noise), recording the noise, the prepared batch and the
+    shuffle's permutations; ``evaluate`` over remainder batches of the
+    silence map and the music shuffle first. The inputs come as
+    ``family_cases``' do (``read_inputs``)."""
+    torch.set_num_threads(1)
+    spec = read_inputs(spec)
+    out = {}
+    for case, c in spec["cases"].items():
+        raws = spec["eval_raws"].get(case)
+        trainer, state, out[case] = grid_case(case, c, "unused", None if raws is None else pfr.RankLoader(raws),
+                                              record=True)
+        del trainer, state
     return out

@@ -78,27 +78,27 @@ def test_generation_config_of_an_experiment():
 
 @pytest.mark.parametrize("parallel", [dict(num_devices=2), dict(fsdp=True), dict(tensor_parallel=2)])
 def test_more_than_one_device_raises(parallel):
-    """Every task takes more devices and FSDP (tests/test_torch_parallel*.py); the generation task, the embedding
-    family and the reconstruction task take tensor parallelism (tests/test_torch_tensor_parallel*.py), with JAX's
-    checks; the other families still raise, citing the second part of its item."""
+    """Every task takes more devices and FSDP (tests/test_torch_parallel*.py), and tensor parallelism, with or
+    without the correspondence augmentation (tests/test_torch_tensor_parallel*.py). What still raises are JAX's
+    two ValueErrors: fsdp beside it, and devices that do not fill whole model groups."""
     cfg = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**parallel))
     makers = (pconfig.generation_config, pconfig.embed_config, pconfig.reconstruct_config, pconfig.project_config,
               pconfig.joint_config, pconfig.classify_config)
-    for i, make in enumerate(makers):
-        if "tensor_parallel" in parallel and i >= 3:
-            with pytest.raises(NotImplementedError, match=r"Queue 1, item 8\.1\.2, second part"):
-                make(cfg)
-        else:
-            assert make(cfg) == make(pconfig.ExperimentConfig())
+    for make in makers:
+        assert make(cfg) == make(pconfig.ExperimentConfig())
     if "tensor_parallel" in parallel:
         # JAX's checks: fsdp excludes it, and the devices must fill whole model groups
         for bad in (dict(parallel, fsdp=True), dict(parallel, num_devices=3)):
-            with pytest.raises(ValueError, match="mutually exclusive|not a multiple"):
-                pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**bad)))
+            for make in makers:
+                with pytest.raises(ValueError, match="mutually exclusive|not a multiple"):
+                    make(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**bad)))
         pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(**parallel, num_devices=4)))
-        corr = pconfig.ExperimentConfig(data=pconfig.DataConfig(correspondence=True), parallel=cfg.parallel)
-        with pytest.raises(NotImplementedError, match=r"correspondence.*item 8\.1\.2, second part"):
-            pconfig.generation_config(corr)
+        for data in (dict(correspondence=True), dict(correspondence=True, correspondence_video=True),
+                     dict(correspondence=True, datatype="music")):
+            corr = pconfig.ExperimentConfig(data=pconfig.DataConfig(**data), parallel=cfg.parallel)
+            one = pconfig.ExperimentConfig(data=pconfig.DataConfig(**data))
+            for make in (pconfig.generation_config, pconfig.classify_config):
+                assert make(corr) == make(one) and make(corr).correspondence
     pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(num_devices=1)))
     # optax's Adam is the trainer's choice (tests/test_torch_optim.py): the task's configuration is the same
     optax = pconfig.ExperimentConfig(optim=pconfig.OptimConfig(tf1_adam=False))

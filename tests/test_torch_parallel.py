@@ -377,14 +377,17 @@ TAKEN = {  # trained on ranks by tests/test_torch_parallel_embed.py and test_tor
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_what_waits_raises_at_two_devices(family):
-    """Every family takes two devices (tests/test_torch_parallel_project.py, test_torch_parallel_classify.py);
-    what waits is their tensor parallelism, the second part of item 8.1.2."""
+    """Every family takes two devices (tests/test_torch_parallel_project.py, test_torch_parallel_classify.py),
+    and tensor parallelism beside them (tests/test_torch_tensor_parallel_families.py and
+    test_torch_tensor_parallel_correspondence.py): nothing waits any more. JAX's ValueError of fsdp beside it
+    still stands."""
     cfg = pmain.config_from_args(pmain.build_parser().parse_args(FAMILIES[family] + ["--num_devices", "2"]))
     assert pmain.task_config(cfg)[1] == pmain.task_config(pmain.config_from_args(
         pmain.build_parser().parse_args(FAMILIES[family])))[1]
     tp = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, tensor_parallel=2))
-    with pytest.raises(NotImplementedError, match=r"item 8\.1\.2, second part"):
-        pmain.task_config(tp)
+    assert pmain.task_config(tp) == pmain.task_config(cfg)
+    with pytest.raises(ValueError, match="fsdp and tensor_parallel are mutually exclusive"):
+        pmain.task_config(dataclasses.replace(tp, parallel=dataclasses.replace(tp.parallel, fsdp=True)))
 
 
 @pytest.mark.parametrize("family", sorted(TAKEN))
@@ -398,22 +401,23 @@ def test_embedding_and_reconstruction_take_two_devices(family):
 
 
 def test_trainer_refuses_other_tasks_on_two_ranks(world):
-    """The trainer takes the classification task and the generation task with correspondence on two ranks (each
-    trained on ranks in tests/test_torch_parallel_classify.py); the generation task takes tensor parallelism
-    (tests/test_torch_tensor_parallel.py), with JAX's ValueError beside fsdp, and its correspondence augmentation
-    and the other families still raise."""
-    refusals = world["ranks"][0]["refusals"]
-    assert refusals == {"classification": None, "correspondence": None}
+    """The trainer refuses no task on two ranks: it takes the classification task and the generation task with
+    correspondence under DDP (each trained on ranks in tests/test_torch_parallel_classify.py) and with
+    tensor_parallel=2 as a (1, 2) grid (trained so in tests/test_torch_tensor_parallel_families.py and
+    test_torch_tensor_parallel_correspondence.py): DualCamNet splits nothing, the correspondence task's trunk
+    its 12 wide convs. What still raises is JAX's ValueError of fsdp beside it, and one process cannot form the
+    grid."""
+    assert world["ranks"][0]["refusals"] == {"classification": None, "correspondence": None}
+    assert [r["tensor_parallel"] for r in world["ranks"]] == [{"classification": 0, "correspondence": 12}] * 2
     tp = pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(tensor_parallel=2))
-    assert pconfig.generation_config(tp) == pconfig.generation_config(pconfig.ExperimentConfig())
-    with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2, second part"):
-        pconfig.project_config(tp)
+    for make in (pconfig.generation_config, pconfig.project_config, pconfig.joint_config, pconfig.classify_config):
+        assert make(tp) == make(pconfig.ExperimentConfig())
     with pytest.raises(ValueError, match="fsdp and tensor_parallel are mutually exclusive"):
         pconfig.generation_config(pconfig.ExperimentConfig(parallel=pconfig.ParallelConfig(tensor_parallel=2,
                                                                                            fsdp=True)))
     for task in (pr.task(correspondence=True), ClassificationTask(ClassifyConfig(compute_dtype="float32"),
                                                                   device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"tensor_parallel.*item 8\.1\.2, second part"):
+        with pytest.raises(ValueError, match="1 ranks do not split into model groups of tensor_parallel=2"):
             Trainer(task, tp)
 
 

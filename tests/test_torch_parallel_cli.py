@@ -121,14 +121,20 @@ def test_devices_the_cli_takes(monkeypatch):
     assert pmain.num_devices(parse(gen + ["--num_devices", "3"]), "cuda") == 3
     with pytest.raises(RuntimeError, match="5 ranks need 5 CUDA devices; 4 are visible"):
         pmain.main(gen + ["--num_devices", "5", "--train_file", "t", "--valid_file", "v"])
-    # what waits, and a device count that tensor_parallel does not divide, are refused before any rank starts
+    # with tensor_parallel=2 every family starts its ranks (here recorded, not spawned); a device count that
+    # tensor_parallel does not divide is refused before any rank starts
     monkeypatch.setattr(pmain, "config_from_args", lambda args, f=pmain.config_from_args: dataclasses.replace(
         f(args), parallel=dataclasses.replace(f(args).parallel, tensor_parallel=2)))
-    with pytest.raises(NotImplementedError,
-                       match=r"tensor_parallel > 1 with the projection family is not ported.*item 8\.1\.2, second"):
-        pmain.main(["--embedding", "1", "--project", "1", "--num_devices", "2", "--device", "cpu"])
+    started = []
+    monkeypatch.setattr(pmain.mesh, "launch", lambda fn, n, argv, device: started.append((n, device)))
+    families = (["--embedding", "1", "--project", "1"], ["--embedding", "1", "--jointmvae", "1"],
+                ["--model", "DualCamNet", "--mfcc", "1"], ["--model", "DualCamNet", "--correspondence", "1"], gen)
+    for flags in families:
+        assert pmain.main(flags + ["--num_devices", "2", "--device", "cpu"]) == 0
+    assert started == [(2, "cpu")] * len(families)
     with pytest.raises(ValueError, match="num_devices=3 is not a multiple of tensor_parallel=2"):
         pmain.main(gen + ["--num_devices", "3", "--device", "cpu"])
+    assert len(started) == len(families)
 
 
 def test_torchrun_environment(monkeypatch):
