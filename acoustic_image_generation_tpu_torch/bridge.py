@@ -17,10 +17,16 @@ scopes, and the layouts change as follows:
 - ``ConvTransposeTF`` kernels: HWIO -> (in, out, kh, kw), not flipped;
 - BN: ``scale``/``bias`` params, ``mean``/``var`` batch stats, under the
   trunk's ``.../BatchNorm`` scope or a UNet's ``bn_i``/``bn_pool_n``;
+- ``MeanStd``'s scale-less BN (``models/decoders.py``): ``bias`` param,
+  ``mean``/``var`` batch stats under its ``BatchNorm_0`` scope;
 - chain convs: HWIO -> the kernel's packed (9*Ci, Co), once, here;
 - trunk quirk: the fixed-pad convs (the root ``conv1`` and ``conv2`` of each
   stride-2 unit) keep ``kernel`` directly under their scope, every other
   trunk conv under ``.../conv/kernel``.
+
+A model of ``models/`` alone (``DecoderVideo``, ``DecoderEnergy``,
+``DecoderAudio``, ``MeanStd``, ``VGGish``, ``UNetVideoSkip``, which no task
+builds) loads and gives back its own flax module's trees the same way.
 
 Every flax leaf must land on exactly one port tensor and every port tensor
 must be set; anything else raises. The values land in the port's f32
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from acoustic_image_generation_tpu_torch.models.blocks import ChainConv
+from acoustic_image_generation_tpu_torch.models.decoders import CenterBatchNorm
 from acoustic_image_generation_tpu_torch.models.dualcamnet import TemporalConv
 from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, Conv2d, ConvTransposeTF, Dense
 from acoustic_image_generation_tpu_torch.models.quant import QLayer, QuantTrunk
@@ -140,6 +147,10 @@ def targets(task: torch.nn.Module):
             out += [(m.weight, "params", kpath, _hwio_to_oihw)] + batch_norm(m.bn, p + ("BatchNorm",))
         elif isinstance(m, BatchNorm) and id(m) not in in_convbn:
             out += batch_norm(m, p)
+        elif isinstance(m, CenterBatchNorm):
+            out += [(m.bias, "params", p + ("bias",), _same),
+                    (m.running_mean, "batch_stats", p + ("mean",), _same),
+                    (m.running_var, "batch_stats", p + ("var",), _same)]
         elif isinstance(m, (Conv2d, ConvTransposeTF, Dense, ChainConv)):
             fn = {
                 Conv2d: _hwio_to_oihw,

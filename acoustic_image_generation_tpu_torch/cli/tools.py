@@ -5,7 +5,7 @@
     python -m acoustic_image_generation_tpu_torch.cli.tools generate CHECKPOINT OUT_DIR \\
         [--set testing] [--energy] [--artifact DIR] -- <main flags>
     python -m acoustic_image_generation_tpu_torch.cli.tools export-serving CHECKPOINT OUT_DIR \\
-        [--energy] [--use_mean] [--batch poly|N] [--platforms cuda,cpu] -- <main flags>
+        [--energy] [--use_mean] [--spatial_shards N] [--batch poly|N] [--platforms cuda,cpu] -- <main flags>
     python -m acoustic_image_generation_tpu_torch.cli.tools serve ARTIFACT_DIR [--host H] [--port P] [--device cuda]
     python -m acoustic_image_generation_tpu_torch.cli.tools serve-info ARTIFACT_DIR [--json]
     python -m acoustic_image_generation_tpu_torch.cli.tools show CHECKPOINT OUT_DIR [--num_images 4] -- <main flags>
@@ -36,7 +36,10 @@ included); ``knn``, ``retrieve`` and ``serve`` take ``--device`` themselves
 positional arguments. ``generate --artifact DIR`` serves from a port
 artifact (``core/serving.py``; the checkpoint positional is then ignored);
 ``export-serving`` writes one for the generation, classification,
-embedding, projection and joint recipes. ``show`` and ``show-video`` render
+embedding, projection and joint recipes; a generation artifact exported
+with ``--spatial_shards N`` is served by ``serve`` and ``generate
+--artifact`` on the first N CUDA devices, and refused where there are fewer
+(the CPU is one device). ``show`` and ``show-video`` render
 with matplotlib, which they import when they run. The converters
 (``convert``, ``reshard``, ``convert-flickr``, ``convert-ave``,
 ``convert-collected``; ``data/convert.py``) run on the host in numpy and
@@ -197,7 +200,8 @@ def cmd_export_serving(args) -> int:
                     return 2
                 trainer._maybe_build_qtrunk(as_raw(first))
             manifest = serving.export_generation(task, args.out_dir, energy=args.energy, qtrunk=trainer.qtrunk,
-                                                 spatial_shards=args.spatial_shards, **kw)
+                                                 spatial_shards=args.spatial_shards,
+                                                 external_weights=args.external_weights, **kw)
         elif isinstance(task, ClassificationTask):
             manifest = serving.export_classification(task, args.out_dir, **kw)
         elif isinstance(task, EmbedTask):
@@ -498,12 +502,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--energy", action="store_true", help="generation: the find_logen energy map as a second output")
     s.add_argument("--use_mean", action="store_true", help="embedding: serve the latent means instead of sampled z")
     s.add_argument("--spatial_shards", type=int, default=1,
-                   help="generation: over N devices (more than 1 waits for DDP/FSDP and raises)")
+                   help="generation: split each request's video rows over N devices (at most 12)")
     s.add_argument("--batch", default="poly", help='"poly" (default, any batch size) or a fixed int')
     s.add_argument("--platforms", default="cuda,cpu", help="comma-separated platforms the artifact serves on")
     s.add_argument("--external_weights", action="store_true",
                    help="accepted for the JAX package's command line: the port's weights always sit beside the "
-                        "manifest")
+                        "manifest; refused beside --spatial_shards above 1, as in JAX")
     s.add_argument("train_flags", nargs=argparse.REMAINDER)
     s.set_defaults(fn=cmd_export_serving)
 

@@ -31,6 +31,15 @@ weights give the same digest in both packages. Five kinds, as JAX's:
 
     model = load_artifact(out_dir)                  # on cuda; device="cpu" for the CPU
 
+A generation artifact exported with ``spatial_shards=n`` (JAX's spatially
+sharded serving, for latency) splits each request's video rows over ``n``
+devices (``serving.py``, ``parallel/spatial.py``): ``load_artifact`` takes
+the first ``n`` CUDA devices, or ``spatial_devices``, a list in which one
+device may repeat (the shards then run in turn on it). As in JAX,
+``external_weights=True`` beside ``n > 1`` is refused at export and a runtime
+with fewer devices at load; ``n`` above 12 (``conv_map``'s rows) is refused
+at export.
+
 ``load_artifact`` checks the format and the file's digest, rebuilds the
 task, loads the weights once onto its device (``bridge.load_flax``,
 ``bridge.load_qtrunk``) and serves through ``serving.py``'s services, so an
@@ -54,6 +63,7 @@ from acoustic_image_generation_tpu_torch import FRAMES_PER_SECOND, bridge, resol
 from acoustic_image_generation_tpu_torch.core import msgpack
 from acoustic_image_generation_tpu_torch.core.config import _build
 from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
+from acoustic_image_generation_tpu_torch.parallel import spatial
 from acoustic_image_generation_tpu_torch.serving import (
     ClassificationService,
     EmbeddingService,
@@ -162,17 +172,22 @@ def _write(out_dir: str, kind_manifest: dict, weights: dict, platforms) -> dict:
 
 
 def export_generation(task: GenerationTask, out_dir: str, *, energy: bool = False, qtrunk: QuantTrunk | None = None,
-                      batch: int | str = "poly", platforms=PLATFORMS, spatial_shards: int = 1) -> dict:
+                      batch: int | str = "poly", platforms=PLATFORMS, spatial_shards: int = 1,
+                      external_weights: bool = False) -> dict:
     """``task.generate`` (and, with ``energy``, ``find_logen`` of its output)
     around ``task``'s weights as they stand; ``qtrunk`` the calibrated int8
-    trunk of a task with ``trunk_quant="int8"``, served unfused. Returns the
-    manifest."""
+    trunk of a task with ``trunk_quant="int8"``, served unfused;
+    ``spatial_shards`` the devices a request's video rows are split over.
+    ``external_weights`` is JAX's flag: the port's weights sit beside the
+    manifest either way, and JAX's refusal of it beside ``spatial_shards >
+    1`` is kept. Returns the manifest."""
     channels = 13 if task.cfg.datatype == "music" else 12  # JAX's data.num_channels
     if energy and channels != 12:
         raise ValueError("energy inversion is defined for 12-channel MFCC images")
-    if spatial_shards > 1:
-        raise NotImplementedError("spatial_shards > 1 (a request's image rows split over devices) is not ported: "
-                                  "the port splits a task's training batch only (ROADMAP.md Queue 1, item 8.1.3)")
+    if external_weights and spatial_shards > 1:
+        raise ValueError("external_weights is incompatible with spatial_shards>1 (JAX's sharded module bakes "
+                         "replicated weight constants)")
+    spatial_shards = spatial.check_shards(spatial_shards)
     int8 = task.cfg.trunk_quant == "int8"
     if int8 and task.cfg.fused_qgemm:
         raise ValueError(
@@ -191,7 +206,7 @@ def export_generation(task: GenerationTask, out_dir: str, *, energy: bool = Fals
         "batch": _batch(batch),
         "channels": channels,
         "energy": bool(energy),
-        "spatial_shards": 1,
+        "spatial_shards": spatial_shards,
         "trunk_quant": "int8" if int8 else "none",
         "inputs": {"mfcc": ["b", 12], "video": ["b", 224, 298, 3], "seed": []},
         "outputs": ["generated", "energy"] if energy else ["generated"],
@@ -290,13 +305,13 @@ class ServingModel:
     the manifest's checks, the kind and a fixed batch; the services check
     the shapes, whole clips and whole seconds, as they do in process."""
 
-    def __init__(self, manifest: dict, task, qtrunk: QuantTrunk | None = None):
+    def __init__(self, manifest: dict, task, qtrunk: QuantTrunk | None = None, spatial_devices=None):
         self.manifest = manifest
         self.task = task
         self.device = task.device
         kind = self.kind
         if kind == "generation":
-            self.service = GenerationService(task, qtrunk)
+            self.service = GenerationService(task, qtrunk, spatial_devices)
         elif kind == "classification":
             self.service = ClassificationService(task)
         elif kind == "embedding":
@@ -380,11 +395,33 @@ def _rebuild(model: dict, device):
     return cls(_build(config_cls, values), device=device)
 
 
-def load_artifact(art_dir: str, device: str | torch.device | None = None) -> ServingModel:
+def _spatial_devices(shards: int, spatial_devices, device, platforms) -> list[torch.device]:
+    """The ``shards`` devices a spatially sharded artifact runs on: the
+    first ``shards`` of ``spatial_devices``, else of ``device``'s type
+    (``cuda`` unless given; the CPU is one device), each of a platform the
+    artifact lists."""
+    if spatial_devices is None:
+        kind = torch.device("cuda" if device is None else device).type
+        count = torch.cuda.device_count() if kind == "cuda" else 1
+        spatial_devices = [torch.device(kind, i) if kind == "cuda" else torch.device(kind) for i in range(count)]
+    if len(spatial_devices) < shards:
+        raise RuntimeError(f"artifact is spatially sharded over {shards} devices; runtime has "
+                           f"{len(spatial_devices)}")
+    devices = [spatial.as_device(resolve_device(d)) for d in spatial_devices[:shards]]
+    for d in devices:
+        if d.type not in platforms:
+            raise RuntimeError(f"artifact exported for {platforms}, runtime device {d} is {d.type!r}")
+    return devices
+
+
+def load_artifact(art_dir: str, device: str | torch.device | None = None, spatial_devices=None) -> ServingModel:
     """Load an artifact directory written by one of the ``export_*``
     functions onto ``device`` (``cuda`` unless given): the format, the
     platform and the weights file's digest (which covers its size) are
-    checked first."""
+    checked first. A spatially sharded generation artifact runs on the
+    first ``spatial_shards`` of ``spatial_devices`` (one device may repeat),
+    by default of the CUDA devices (of ``device``'s type where it is given);
+    the task sits on the first of them."""
     with open(os.path.join(art_dir, MANIFEST)) as f:
         manifest = json.load(f)
     fmt = manifest.get("format")
@@ -395,12 +432,17 @@ def load_artifact(art_dir: str, device: str | torch.device | None = None) -> Ser
             "tools export-serving")
     if fmt != FORMAT:
         raise ValueError(f"unsupported serving artifact format {fmt!r}")
-    dev = resolve_device(device)
-    if dev.type not in manifest.get("platforms", []):
-        raise RuntimeError(f"artifact exported for {manifest.get('platforms')}, runtime is {dev.type!r}")
-    if manifest.get("spatial_shards", 1) > 1:
-        raise NotImplementedError("spatially sharded artifacts are not ported: the port splits the training "
-                                  "batch only (ROADMAP.md Queue 1, item 8.1.3)")
+    shards = manifest.get("spatial_shards", 1)
+    devices = None
+    if shards > 1:
+        devices = _spatial_devices(shards, spatial_devices, device, manifest.get("platforms", []))
+        dev = devices[0]
+    elif spatial_devices is not None:
+        raise ValueError(f"spatial_devices is for a spatially sharded artifact; {art_dir} has spatial_shards 1")
+    else:
+        dev = resolve_device(device)
+        if dev.type not in manifest.get("platforms", []):
+            raise RuntimeError(f"artifact exported for {manifest.get('platforms')}, runtime is {dev.type!r}")
     with open(os.path.join(art_dir, WEIGHTS), "rb") as f:
         blob = f.read()
     digest = hashlib.sha256(blob).hexdigest()
@@ -418,4 +460,4 @@ def load_artifact(art_dir: str, device: str | torch.device | None = None) -> Ser
     if "qtrunk" in weights:
         qtrunk = bridge.load_qtrunk(QuantTrunk(task.resnet.blocks, device=dev), weights["qtrunk"])
     del blob, weights
-    return ServingModel(manifest, task, qtrunk)
+    return ServingModel(manifest, task, qtrunk, devices)

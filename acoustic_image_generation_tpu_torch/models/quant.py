@@ -30,6 +30,12 @@ int32 products (``ops/qconv.py``).
 Under tensor parallelism (``parallel/mesh.py``) the int8 trunk is whole on
 every rank, as JAX keeps it outside its split state: folded and quantized
 from the whole float kernels, its amaxes the maxima over the data group.
+
+Under spatial sharding (``parallel/spatial.py``) ``trunk_forward_rows`` runs
+the unfused program with static scales on a request's row blocks, each
+conv and the max-pool on the input window its shard's output rows read.
+The int8 products are exact and every other step is elementwise, so the
+split trunk equals the whole one to the bit.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from acoustic_image_generation_tpu_torch.models.resnet import RESNET50_BLOCKS, C
 from acoustic_image_generation_tpu_torch.ops.qconv import conv2d_s8, max_pool_s8
 from acoustic_image_generation_tpu_torch.ops.qgemm import fdiv, fused_q1x1
 from acoustic_image_generation_tpu_torch.ops.tf_compat import fixed_pads, same_pads
-from acoustic_image_generation_tpu_torch.parallel import mesh
+from acoustic_image_generation_tpu_torch.parallel import mesh, spatial
 
 # ------------------------------------------------------------------- fold
 
@@ -243,6 +249,66 @@ def trunk_forward(qt: QuantTrunk, x: torch.Tensor, *, collect: bool = False,
         r = _qconv(rq, a3, unit.conv3, 1, fixed_pad=False)
         yq, a = qa(torch.relu_(shortcut.add_(r)), f"{name}/out")
     return _deq(yq, a).to(out_dtype), observed
+
+
+def _qconv_rows(xq: spatial.Rows, layers: list, a_amax: list, stride: int, *, fixed_pad: bool,
+                name: str) -> spatial.Rows:
+    """``_qconv`` on row blocks: ``layers[i]`` and ``a_amax[i]`` on shard
+    ``i``'s device, the row padding the whole image's."""
+    kh, kw = layers[0].kernel
+    if fixed_pad:
+        hp, wp = fixed_pads(kh), fixed_pads(kw)
+    else:
+        hp, wp = same_pads(xq.height, kh, stride), same_pads(xq.width, kw, stride)
+
+    def run(i, win):
+        layer = layers[i]
+        acc = conv2d_s8(win, layer.w, layer.kernel, stride, ((0, 0), wp))
+        return acc.float().mul_(fdiv(a_amax[i], 127.0) * layer.scale).add_(layer.bias)
+
+    return spatial.layer(xq, kh, stride, hp, run, name)
+
+
+def trunk_forward_rows(qts: list, x: spatial.Rows, *, out_dtype=torch.bfloat16) -> spatial.Rows:
+    """``trunk_forward`` with static scales, unfused, on row blocks:
+    ``qts[i]`` is the calibrated ``QuantTrunk`` on shard ``i``'s device,
+    ``x`` the normalized f32 video's rows. Returns the block4 feature's rows
+    in ``out_dtype``, equal to the bit to ``trunk_forward``'s."""
+
+    def amaxes(site):
+        return [torch.clamp_min(qt.amax(site), 1e-12) for qt in qts]
+
+    def quant(rows, site):
+        a = amaxes(site)
+        return rows.map(lambda i, v: _quant_act(v, a[i], site, False, None)[0]), a
+
+    def deq(rows, a):
+        return rows.map(lambda i, q: _deq(q, a[i]))
+
+    def layers(path):
+        return [qt.get_submodule(path) for qt in qts]
+
+    xq, a = quant(x, "input")
+    y = _qconv_rows(xq, layers("conv1"), a, 2, fixed_pad=True, name="conv1").map(lambda i, v: torch.relu_(v))
+    yq, a = quant(y, "stem_out")
+    yq = spatial.layer(yq, 3, 2, (0, 0), lambda i, w: max_pool_s8(w, 3, 2), "pool1")
+    for name, stride in qts[0].units:
+        unit = getattr(qts[0], name)
+        if unit.shortcut is not None:
+            sc = _qconv_rows(yq, layers(f"{name}.shortcut"), a, stride, fixed_pad=False, name=f"{name}/shortcut")
+            shortcut = deq(*quant(sc, f"{name}/sc"))
+        elif stride > 1:  # rows at even global indices: each window starts at one
+            shortcut = deq(spatial.layer(yq, 1, stride, (0, 0), lambda i, w, s=stride: w[:, ::s, ::s],
+                                         f"{name}/subsample"), a)
+        else:
+            shortcut = deq(yq, a)
+        r = _qconv_rows(yq, layers(f"{name}.conv1"), a, 1, fixed_pad=False, name=f"{name}/conv1")
+        rq, a2 = quant(r.map(lambda i, v: torch.relu_(v)), f"{name}/c2")
+        r = _qconv_rows(rq, layers(f"{name}.conv2"), a2, stride, fixed_pad=stride > 1, name=f"{name}/conv2")
+        rq, a3 = quant(r.map(lambda i, v: torch.relu_(v)), f"{name}/c3")
+        r = _qconv_rows(rq, layers(f"{name}.conv3"), a3, 1, fixed_pad=False, name=f"{name}/conv3")
+        yq, a = quant(shortcut.zip(r, lambda i, s, v: torch.relu_(s.add_(v))), f"{name}/out")
+    return deq(yq, a).map(lambda i, v: v.to(out_dtype))
 
 
 def calibrate(qt: QuantTrunk, video: torch.Tensor) -> QuantTrunk:

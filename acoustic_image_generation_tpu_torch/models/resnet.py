@@ -35,6 +35,15 @@ is split holds its block of the output channels: the conv (or the
 ``matmul_stats`` product, on the local columns, with their column sums)
 runs on them after ``sum_input_grad``, ``gather_channels`` makes the whole
 map (and the whole mean and variance), and the BN runs on it, replicated.
+
+Under spatial sharding (``parallel/spatial.py``) ``trunk_rows`` and
+``conv_map_rows`` run the eval-mode trunk and ``conv_map`` on a request's
+row blocks: every conv and the max-pool give each shard its own rows of
+their output, from the input window those rows read (the halo from the
+neighbouring shards, zero rows at the image border as the layer's padding);
+the 1x1 convs read only their own rows, and a stride-2 shortcut reads the
+even global rows. Each shard runs the layer's copy on its own device
+(``spatial.replicas``).
 """
 
 from __future__ import annotations
@@ -47,8 +56,14 @@ import torch.nn.functional as F
 
 from acoustic_image_generation_tpu_torch.models.layers import BatchNorm, he_truncated_normal
 from acoustic_image_generation_tpu_torch.ops.conv_stats import conv1x1_batch_stats
-from acoustic_image_generation_tpu_torch.ops.tf_compat import conv2d_same_fixed_pad, conv2d_xla
-from acoustic_image_generation_tpu_torch.parallel import mesh
+from acoustic_image_generation_tpu_torch.ops.tf_compat import (
+    conv2d_same_fixed_pad,
+    conv2d_xla,
+    conv_nhwc,
+    fixed_pads,
+    same_pads,
+)
+from acoustic_image_generation_tpu_torch.parallel import mesh, spatial
 
 # (base_depth, num_units, stride) per block.
 RESNET50_BLOCKS = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 1))
@@ -172,3 +187,59 @@ class ResNet50(nn.Module):
         for name in self.unit_names:
             net = getattr(self, name)(net, train)
         return net
+
+
+# ------------------------------------------------------ spatial sharding
+
+
+def conv_bn_rows(x: spatial.Rows, convs: list, name: str) -> spatial.Rows:
+    """``ConvBN.forward`` in eval mode on row blocks; ``convs[i]`` is the
+    layer on shard ``i``'s device. The row padding is the whole image's
+    (tf-slim's fixed pad, or XLA "SAME" over the whole height)."""
+    c = convs[0]
+    kh, kw = c.weight.shape[2:]
+    if c.fixed_pad:
+        hp, wp = fixed_pads(kh), fixed_pads(kw)
+    elif c.padding == "VALID":
+        hp = wp = (0, 0)
+    else:
+        hp, wp = same_pads(x.height, kh, c.stride), same_pads(x.width, kw, c.stride)
+
+    def run(i, win):
+        m = convs[i]
+        y = m.bn(conv_nhwc(win.to(m.dtype), m.weight.to(m.dtype), None, m.stride, ((0, 0), wp)), False)
+        return F.relu(y) if m.relu else y
+
+    return spatial.layer(x, kh, c.stride, hp, run, name)
+
+
+def _max_pool(i, win):
+    return F.max_pool2d(win.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+
+
+def trunk_rows(replicas: list, x: spatial.Rows) -> spatial.Rows:
+    """``ResNet50(mode="trunk")`` in eval mode on row blocks: ``replicas[i]``
+    is the ResNet50 on shard ``i``'s device, ``x`` the video's rows."""
+    net = x.map(lambda i, b: b.to(replicas[i].dtype))
+    net = conv_bn_rows(net, [r.conv1 for r in replicas], "conv1")
+    net = spatial.layer(net, 3, 2, (0, 0), _max_pool, "pool1")
+    for name in replicas[0].unit_names:
+        units = [getattr(r, name) for r in replicas]
+        stride = units[0].stride
+        if units[0].shortcut is not None:
+            shortcut = conv_bn_rows(net, [u.shortcut for u in units], f"{name}/shortcut")
+        elif stride > 1:  # rows at even global indices: each window starts at one
+            shortcut = spatial.layer(net, 1, stride, (0, 0), lambda i, w, s=stride: w[:, ::s, ::s], f"{name}/subsample")
+        else:
+            shortcut = net
+        r = conv_bn_rows(net, [u.conv1 for u in units], f"{name}/conv1")
+        r = conv_bn_rows(r, [u.conv2 for u in units], f"{name}/conv2")
+        r = conv_bn_rows(r, [u.conv3 for u in units], f"{name}/conv3")
+        net = shortcut.zip(r, lambda i, a, b: F.relu(a + b))
+    return net
+
+
+def conv_map_rows(replicas: list, feat: spatial.Rows) -> spatial.Rows:
+    """``ResNet50(mode="head")`` in eval mode on row blocks of a trunk
+    feature."""
+    return conv_bn_rows(feat.map(lambda i, b: b.to(replicas[i].dtype)), [r.conv_map for r in replicas], "conv_map")

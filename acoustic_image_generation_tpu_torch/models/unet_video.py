@@ -37,7 +37,14 @@ Under tensor parallelism (``parallel/mesh.py``) ``UNetVideo``'s wide convs
 channels and run column-parallel (``models/layers.py``); nothing of
 ``UNetEnergy`` is wide enough to split.
 
-``UNetVideoSkip`` is not ported (``ROADMAP.md`` Queue 1, item 8).
+``UNetVideoSkip`` (scope ``UNet``): the legacy skip-connected video VAE
+(``acoustic_image_generation_tpu/models/unet_video.py::UNetVideoSkip``),
+which no task builds:
+224x298x3 -> 8/32/32/64 encoder with strided-conv pools ((2,3) VALID at
+stages 2 and 4), a 128-d latent whose variance head is raw (``z = mean +
+variance * eps``, no softplus), and a decoder that concatenates every
+encoder level back in; BN everywhere but the heads, the dense and the
+transposed convs.
 """
 
 from __future__ import annotations
@@ -152,3 +159,54 @@ class UNetEnergy(nn.Module):
         up = self.upsample_8(up)
         up = self.layer8_2(self.layer8(torch.cat([up, conv1], -1)))
         return VaeOutput(F.relu(self.final(up)), z, mean, variance, conv4, None)
+
+
+class UNetVideoSkip(nn.Module):
+    """Scope ``UNet``: the legacy skip-connected video VAE, latent 128."""
+
+    def __init__(self, latent_dim=128, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.latent_dim = latent_dim
+
+        def ccp(in_ch, filters, **extra):
+            return ConvConvPool(in_ch, filters, batch_norm=True, **extra, **kw)
+
+        self.layer1 = ccp(3, (8, 8), pool=True)
+        self.layer2 = ccp(8, (32, 32), pool=True, pool_kernel=(2, 3), pool_padding="VALID")
+        self.layer3 = ccp(32, (32, 32), pool=True)
+        self.layer4 = ccp(32, (64, 64), pool=True, pool_kernel=(2, 3), pool_padding="VALID")
+        self.layer5 = ccp(64, (128, 128))
+        self.mean = Conv2d(128, latent_dim, (14, 18), padding="VALID", **kw)
+        self.variance = Conv2d(128, latent_dim, (14, 18), padding="VALID", **kw)
+        self.dense = Dense(latent_dim, 14 * 18, **kw)
+        self.conv_dec = Conv2d(1, 128, (3, 3), **kw)
+        self.upsample_6 = ConvTransposeTF(128, 64, (2, 3), (2, 2), **kw)
+        self.layer6 = ccp(128, (64, 64))
+        self.upsample_7 = ConvTransposeTF(64, 32, (2, 2), (2, 2), **kw)
+        self.layer7 = ccp(64, (32, 32))
+        self.upsample_8 = ConvTransposeTF(32, 32, (2, 3), (2, 2), **kw)
+        self.layer8 = ccp(64, (32, 32))
+        self.upsample_9 = ConvTransposeTF(32, 8, (2, 2), (2, 2), **kw)
+        self.layer9 = ccp(16, (8, 8))
+        self.final = Conv2d(8, 3, (1, 1), **kw)
+
+    def forward(self, x, *, eps=None, generator=None, train: bool = False) -> VaeOutput:
+        """224x298x3 -> sigmoid reconstruction. ``eps`` (N, 128), or drawn
+        from ``generator``; with neither, ``z = mean``."""
+        conv1, pool1 = self.layer1(x, train)
+        conv2, pool2 = self.layer2(pool1, train)
+        conv3, pool3 = self.layer3(pool2, train)
+        conv4, pool4 = self.layer4(pool3, train)
+        conv5 = self.layer5(pool4, train)
+        mean = self.mean(conv5).reshape(-1, self.latent_dim)
+        variance = self.variance(conv5).reshape(-1, self.latent_dim)
+        if eps is None and generator is not None:
+            eps = torch.randn(variance.shape, generator=generator, device=variance.device)
+        z = mean if eps is None else mean + variance * eps.to(variance.dtype)
+        net = F.relu(self.dense(z)).reshape(-1, 14, 18, 1)
+        net = F.relu(self.conv_dec(net))
+        for n, skip in ((6, conv4), (7, conv3), (8, conv2), (9, conv1)):
+            net = getattr(self, f"layer{n}")(torch.cat([getattr(self, f"upsample_{n}")(net), skip], -1), train)
+        logits = self.final(net)
+        return VaeOutput(torch.sigmoid(logits), z, mean, variance, conv5, logits)

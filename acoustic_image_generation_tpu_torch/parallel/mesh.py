@@ -67,9 +67,9 @@ reported metrics and the eval sums (``train/trainer.py``).
 With no group (``world() == 1``) every helper is the identity and the
 modules take their one-device paths, so one device computes what it
 computed before. Ranks that share a card over gloo run the collectives of
-the grid on host copies of CUDA tensors. ``spatial_sharding``
-(``spatial_shards > 1``) is not ported: it raises where it is asked for
-(``ROADMAP.md`` Queue 1, item 8.1.3).
+the grid on host copies of CUDA tensors. JAX's ``spatial_sharding`` (a
+request's image rows split over devices, for serving) is one process over a
+list of devices, not ranks: ``parallel/spatial.py``.
 """
 
 from __future__ import annotations

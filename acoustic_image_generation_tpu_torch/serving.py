@@ -20,6 +20,15 @@ export_embedding`` exports. It runs only the three encoders and VAE heads
 (``EmbedTask.encode``): the decoders do not feed the latents, and XLA drops
 them from JAX's jitted ``embeddings``, so the numbers are the same.
 
+With ``spatial_devices`` (a list of ``n`` devices, the first the task's;
+one device may repeat) ``GenerationService`` splits a request's video rows
+over them (``parallel/spatial.py``, JAX's ``spatial_sharding`` of a
+generation artifact with ``spatial_shards = n``): the eval trunk (float or
+unfused int8) and ``conv_map`` run on each shard's rows with their halos,
+and only ``conv_map``'s output (N,12,16,12) is gathered onto the first
+device, where the tiled MFCC map, the generator, the noise and
+``find_logen`` run once, as without the split.
+
 ``GenerationService.generate``, ``ClassificationService``,
 ``EmbeddingService`` and ``ProjectionService`` (projection and joint
 tasks) answer the model-ready requests of the serving artifacts
@@ -41,7 +50,9 @@ from acoustic_image_generation_tpu_torch import (
 )
 from acoustic_image_generation_tpu_torch.data.preprocess import Batch, preprocess_batch, tile_mfccmap
 from acoustic_image_generation_tpu_torch.dsp.energy import find_logen
-from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk
+from acoustic_image_generation_tpu_torch.models.quant import QuantTrunk, trunk_forward_rows
+from acoustic_image_generation_tpu_torch.models.resnet import conv_map_rows, trunk_rows
+from acoustic_image_generation_tpu_torch.parallel import spatial
 from acoustic_image_generation_tpu_torch.train.classify import ClassificationTask
 from acoustic_image_generation_tpu_torch.train.embed import EmbedTask
 from acoustic_image_generation_tpu_torch.train.generation import GenerationTask, no_tf32
@@ -61,14 +72,40 @@ def _as_tensor(a, dtype: torch.dtype, shape_tail: tuple, what: str, device) -> t
 class GenerationService:
     """Holds a ``GenerationTask`` and its weights on one device and answers
     raw requests. ``qtrunk``: a calibrated ``QuantTrunk`` for a task with
-    ``trunk_quant="int8"``; without one, the first request calibrates it."""
+    ``trunk_quant="int8"``; without one, the first request calibrates it.
+    ``spatial_devices``: split each request's video rows over these devices
+    (the first the task's), each holding one copy of the ResNet (and of the
+    ``QuantTrunk``); the int8 trunk is then the unfused one."""
 
-    def __init__(self, task: GenerationTask, qtrunk: QuantTrunk | None = None):
+    def __init__(self, task: GenerationTask, qtrunk: QuantTrunk | None = None, spatial_devices=None):
         if qtrunk is not None and task.cfg.trunk_quant != "int8":
             raise ValueError('a QuantTrunk serves only a task with trunk_quant="int8"')
         self.task = task.eval()
         self.device = task.device
         self.qtrunk = qtrunk
+        self.spatial_devices = None
+        if spatial_devices is not None:
+            if task.cfg.fused_qgemm:
+                raise ValueError("the spatially split int8 trunk is the unfused one: serve without fused_qgemm")
+            spatial.check_shards(len(spatial_devices))
+            self.spatial_devices = [spatial.as_device(d) for d in spatial_devices]
+            if self.spatial_devices[0] != spatial.as_device(self.device):
+                raise ValueError(f"the first spatial device must be the task's, {self.device}; got "
+                                 f"{self.spatial_devices[0]}")
+            self._resnets = spatial.replicas(task.resnet, self.spatial_devices)
+            self._qtrunks = None
+
+    def _spatial_feature(self, video: torch.Tensor) -> torch.Tensor:
+        """``conv_map``'s output (N,12,16,12) on the task's device, from the
+        video's rows split over the spatial devices."""
+        rows = spatial.Rows.split(video, self.spatial_devices)
+        if self.qtrunk is not None:
+            if self._qtrunks is None:
+                self._qtrunks = spatial.replicas(self.qtrunk, self.spatial_devices)
+            feat = trunk_forward_rows(self._qtrunks, rows, out_dtype=self.task.dtype)
+        else:
+            feat = trunk_rows(self._resnets, rows)
+        return conv_map_rows(self._resnets, feat).gather(self.device)
 
     def __call__(self, audio, video, seed: int, *, eps=None):
         """``audio`` int32 (N,1024), ``video`` uint8 (N,224,298,3) BGR ->
@@ -103,7 +140,9 @@ class GenerationService:
                 eps, generator = torch.as_tensor(eps, device=self.device), None
             elif generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(seed)
-            gen = self.task.generate(mfcc, video, eps=eps, generator=generator, qtrunk=self.qtrunk)
+            map_feat = None if self.spatial_devices is None else self._spatial_feature(video)
+            gen = self.task.generate(mfcc, video, eps=eps, generator=generator, qtrunk=self.qtrunk,
+                                     map_feat=map_feat)
             return gen, find_logen(gen) if energy else None
 
 

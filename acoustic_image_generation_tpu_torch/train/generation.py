@@ -207,17 +207,21 @@ class GenerationTask(nn.Module):
         return calibrate(quantize_trunk(self.resnet), video)
 
     def _forward(self, mfcc, video, *, train: bool = False, eps=None, generator=None,
-                 trunk_feat=None, qtrunk=None) -> VaeOutput:
+                 trunk_feat=None, qtrunk=None, map_feat=None) -> VaeOutput:
         """The forward pass. ``train``: BN on batch statistics, the running
         averages of every train-mode BN updated in place (JAX returns them as
         new ``batch_stats``); the VAE noise must then come from ``eps`` or
         ``generator``. ``qtrunk``: the trunk runs as the int8 program and its
-        features take the head-only path."""
+        features take the head-only path. ``map_feat``: ``conv_map``'s
+        output (N,12,16,12), computed elsewhere (the spatially split trunk of
+        ``serving.py``); the ResNet does not run."""
         if train and not self.cfg.ae and eps is None and generator is None:
             raise ValueError("a train forward samples the VAE noise: pass eps or generator")
-        if trunk_feat is None and qtrunk is not None:
+        if trunk_feat is None and qtrunk is not None and map_feat is None:
             trunk_feat = self.trunk_features(video, qtrunk)
-        if trunk_feat is None:
+        if map_feat is not None:
+            feat = map_feat
+        elif trunk_feat is None:
             feat = self.resnet(video, mode="full", train=train)
         else:
             feat = self.resnet(trunk_feat, mode="head", train=train)
@@ -281,10 +285,12 @@ class GenerationTask(nn.Module):
             losses[f"mse{i}"] = err[..., 3 * i: 3 * i + 3].mean(dim=(1, 2, 3))
         return losses, recon
 
-    def generate(self, mfcc, video, *, eps=None, generator=None, qtrunk=None) -> torch.Tensor:
+    def generate(self, mfcc, video, *, eps=None, generator=None, qtrunk=None, map_feat=None) -> torch.Tensor:
         """(mfcc (N,12), video (N,224,298,3) in [0,1]) -> generated acoustic
         images (N,36,48,12) float32. The VAE noise is ``eps`` when given,
-        else drawn from ``generator``; ``qtrunk`` runs the int8 trunk."""
+        else drawn from ``generator``; ``qtrunk`` runs the int8 trunk;
+        ``map_feat``, ``conv_map``'s output computed elsewhere, replaces the
+        ResNet (``video`` is then not read)."""
         with no_tf32():
-            out = self._forward(mfcc, video, eps=eps, generator=generator, qtrunk=qtrunk)
+            out = self._forward(mfcc, video, eps=eps, generator=generator, qtrunk=qtrunk, map_feat=map_feat)
         return out.output.to(torch.float32)

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --convert
     python3 chip_smoke.py --tensor-parallel
+    python3 chip_smoke.py --spatial
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``), ``g++`` with zlib's headers and
@@ -25,7 +26,7 @@ the ``sosfilt`` check), ``--embed-workflow`` phase 13 alone,
 UNetEnergy's chains), ``--serving`` phase 15 alone (on its own shards and
 a checkpoint of random weights), ``--parallel`` phase 16 alone (on its own
 shards), ``--convert`` phase 17 alone, ``--tensor-parallel`` phase 18
-alone; none prints a result line. Phases, each fatal on
+alone, ``--spatial`` phase 19 alone; none prints a result line. Phases, each fatal on
 failure:
 
 1. build every kernel of ``acoustic_image_generation_tpu_torch/csrc`` with
@@ -260,13 +261,26 @@ failure:
    whether the peers' replicated gradients agreed before the trainer's
    broadcast; per rank the split bytes, the peak memory and the
    collectives' time and bytes a step (the broadcast's too);
-19. print the card's name and power limit, one ``{"kernels": [...]}`` line
+19. spatially sharded generation serving: the bf16 (with its energy map),
+   f32 and int8 (unfused trunk) artifacts at full width, each exported
+   whole and with ``spatial_shards=2`` from one task of random weights,
+   the sharded one loaded on ``[cuda:0, cuda:1]`` (``[cuda:0, cuda:0]`` on
+   one card, where the default device list is refused as JAX refuses it);
+   six 96-frame requests through each, the launch counts reset just before
+   the sharded ones and read just after (12 ``conv_chain`` a request, none
+   a shard), the sharded outputs held against the whole ones (int8 to the
+   bit, f32 within 5e-5, bf16 within ``SPATIAL_BF16_TOL``) and the gathered
+   ``conv_map`` feature's gap logged; each shard's rows at the stem, the
+   trunk's output and ``conv_map``, the halo bytes a request, export and
+   load seconds, the median request time beside the whole artifact's;
+20. print the card's name and power limit, one ``{"kernels": [...]}`` line
    (each kernel's launches also over phase 11's passes, ``workflow_launches``,
    over phase 13's, ``embed_workflow_launches``, over phase 14's,
    ``task_families_launches``, over phase 15's, ``serving_launches``, over
    rank 0's runs of phase 16, ``parallel_launches``, over phase 17's
-   steps, ``convert_launches``, and over rank 0's runs of phase 18,
-   ``tensor_parallel_launches``), and last ``{"ok": true, "device":
+   steps, ``convert_launches``, over rank 0's runs of phase 18,
+   ``tensor_parallel_launches``, and over phase 19's sharded requests,
+   ``spatial_launches``), and last ``{"ok": true, "device":
    {...}}``.
 
 f32 comparisons run with TF32 off for matmuls and cuDNN convolutions
@@ -5452,6 +5466,178 @@ def tensor_parallel_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 19
+# Spatially sharded generation serving (parallel/spatial.py, an artifact's spatial_shards): each 96-frame
+# request's video rows split over SPATIAL_SHARDS devices through the eval trunk and conv_map, the (N,12,16,12)
+# feature gathered onto the first, the generator (12 conv_chain launches, once a request) there. On one card the
+# device list names cuda:0 twice and the shards run in turn on it: correctness, not speed. Each kind (bf16 with its
+# energy map, f32, int8 with the unfused trunk at a fixed batch) is exported whole and sharded from one task, and
+# the sharded artifact is held against the whole one on the same inputs and seeds:
+# - int8 to the bit: the int8 products are exact and every other step elementwise;
+# - f32 (TF32 off) within JAX's 5e-5 for the same comparison (tests/test_serving.py);
+# - bf16 within SPATIAL_BF16_TOL, set before the first run: a shard's conv has another height than the whole
+#   one's, so cuDNN may take another algorithm and sum in another order; each bf16 rounding of a conv output then
+#   moves by one bf16 step (2^-8 of the value) where it differs, the trunk's 17 layers carry a few such steps to
+#   conv_map's feature, and the generator's sigmoid scales a logit's error by at most 1/4. 3e-2 is 1.5x the bound
+#   of one bf16 conv pair against its plain version (CHAIN_TOL), and far under a fault's (a misplaced halo row
+#   reorders a whole image row of the feature: order 1e-1 after the min-max normalization).
+SPATIAL_SHARDS = 2
+SPATIAL_REQUESTS = 6  # a kind's timed requests, whole and sharded each, inputs cycled over SPATIAL_INPUTS draws
+SPATIAL_INPUTS = 2
+SPATIAL_KINDS = ("bf16", "f32", "int8")
+SPATIAL_F32_TOL = 5e-5
+# the f32 conv_map feature against the whole one's, of its largest magnitude: the generator's sigmoid output can
+# saturate and hide a misplaced halo row (on the CPU a border row of neighbours in place of the stem's zero padding
+# left the output within 5e-5), the feature cannot. IEEE f32 sums in another order through 17 layers: read 5.5e-6
+# (9.399e-3 of 1717.66, the same in two runs on an H100 80GB HBM3 at 700 W); a misplaced row moves its entries by
+# their own size.
+SPATIAL_F32_FEATURE_TOL = 1e-5
+SPATIAL_BF16_TOL = 3e-2
+
+
+def spatial_devices() -> tuple[list, bool]:
+    """The phase's device list, and whether it repeats one card."""
+    n = SPATIAL_SHARDS
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)], False
+    return ["cuda:0"] * n, True
+
+
+def spatial_source(kind: str):
+    """The full-width task of ``kind`` with random weights from the seed, its
+    export arguments and its int8 trunk."""
+    from acoustic_image_generation_tpu_torch.train.generation import GenerationConfig, GenerationTask
+
+    if kind == "int8":
+        task, _, kw, qtrunk = serving_source("generation int8")
+        return task, dict(batch=kw["batch"]), qtrunk
+    task = GenerationTask(GenerationConfig(compute_dtype="bfloat16" if kind == "bf16" else "float32"),
+                          device="cuda").init_params(SEED)
+    return task, dict(energy=kind == "bf16"), None
+
+
+def spatial_requests(model, reqs: list) -> tuple[list, list]:
+    """Each request through ``model``: outputs and host-clock ms."""
+    outs, times = [], []
+    for i, inputs in enumerate(reqs):
+        t0 = time.perf_counter()
+        outs.append(serving_call(model, "generation", inputs, SEED + i))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return outs, times
+
+
+def spatial_feature_gap(whole, sharded, video: np.ndarray) -> tuple[float, float, list]:
+    """The gathered conv_map feature of the sharded artifact against the
+    whole one's on one request: the largest gap, the largest magnitude, and
+    the split's layer records."""
+    from acoustic_image_generation_tpu_torch.parallel import spatial
+    from acoustic_image_generation_tpu_torch.train.generation import no_tf32
+
+    v = torch.from_numpy(video).cuda()
+    with torch.inference_mode(), no_tf32():
+        task, qtrunk = whole.task, whole.service.qtrunk
+        if qtrunk is None:
+            want = task.resnet(v, mode="full")
+        else:
+            want = task.resnet(task.trunk_features(v, qtrunk), mode="head")
+        with spatial.record() as records:
+            got = sharded.service._spatial_feature(v)
+        torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max()), float(want.float().abs().max()), records
+
+
+def spatial_artifact(kind: str, counters: dict, root: Path, total: dict) -> dict:
+    """Phase 19 for one kind: export whole and sharded, load, serve, hold the
+    sharded outputs against the whole ones, log the plan and the times."""
+    from acoustic_image_generation_tpu_torch.core import serving
+
+    devices, repeated = spatial_devices()
+    task, kw, qtrunk = spatial_source(kind)
+    paths = {n: root / "spatial" / f"{kind}_{n}" for n in (1, SPATIAL_SHARDS)}
+    secs = {}
+    for n, path in paths.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = serving.export_generation(task, str(path), qtrunk=qtrunk, spatial_shards=n, **kw)
+        secs[f"export_{n}"] = time.perf_counter() - t0
+        if manifest["spatial_shards"] != n:
+            raise AssertionError(f"spatial {kind}: manifest spatial_shards {manifest['spatial_shards']}, expected {n}")
+    del task, qtrunk
+    torch.cuda.empty_cache()
+    models = {}
+    for n, path in paths.items():
+        t0 = time.perf_counter()
+        models[n] = serving.load_artifact(str(path), spatial_devices=devices if n > 1 else None)
+        torch.cuda.synchronize()
+        secs[f"load_{n}"] = time.perf_counter() - t0
+    if repeated and kind == "bf16":  # JAX's refusal: the default device list is the first n CUDA devices
+        try:
+            serving.load_artifact(str(paths[SPATIAL_SHARDS]))
+        except RuntimeError as e:
+            log(f"spatial: the default device list refused on {torch.cuda.device_count()} card: {e}")
+        else:
+            raise AssertionError("spatial: a 2-shard artifact loaded on the default devices of one card")
+    rng = np.random.default_rng(SEED + 62)
+    draws = [serving_inputs("generation", rng) for _ in range(SPATIAL_INPUTS)]
+    reqs = [draws[i % SPATIAL_INPUTS] for i in range(SPATIAL_REQUESTS)]
+    whole, whole_ms = spatial_requests(models[1], reqs)
+    with counted(counters, f"spatial {kind}: {SPATIAL_REQUESTS} sharded requests", need=("conv_chain",)) as c:
+        sharded, sharded_ms = spatial_requests(models[SPATIAL_SHARDS], reqs)
+    for k, v in c.launches.items():
+        total[k] += v
+    got = {k: v for k, v in c.launches.items() if v}
+    if got != {"conv_chain": 12 * SPATIAL_REQUESTS}:
+        raise AssertionError(f"spatial {kind}: launches {got} over {SPATIAL_REQUESTS} requests, expected "
+                             f"{{'conv_chain': {12 * SPATIAL_REQUESTS}}}: 12 a request, none a shard")
+    gaps = {}
+    for name in sharded[0]:
+        outs = [(a[name], b[name]) for a, b in zip(sharded, whole)]
+        if not all(np.isfinite(a).all() for a, _ in outs):
+            raise AssertionError(f"spatial {kind}: {name} not finite")
+        gaps[name] = max(float(np.abs(a - b).max()) for a, b in outs)
+    feat_gap, feat_max, records = spatial_feature_gap(models[1], models[SPATIAL_SHARDS], reqs[0][1])
+    layers = {r["name"]: r for r in records}
+    trunk_out = records[-2]  # the last unit's conv3, before conv_map
+    halo = sum(r["halo_bytes"] for r in records)
+    timing = "one card, shards sequential" if repeated else f"{SPATIAL_SHARDS} cards"
+    rec = dict(secs, whole=statistics.median(whole_ms[1:]), sharded=statistics.median(sharded_ms[1:]),
+               first=sharded_ms[0], gaps=gaps, feature_gap=feat_gap, feature_max=feat_max, halo_bytes=halo,
+               rows={"stem": layers["conv1"]["out_rows"], "trunk": trunk_out["out_rows"],
+                     "conv_map": layers["conv_map"]["out_rows"]})
+    log(f"spatial {kind} ({card()}; devices {devices}, {timing}): export whole {secs['export_1']:.2f} s, sharded "
+        f"{secs[f'export_{SPATIAL_SHARDS}']:.2f} s; load whole {secs['load_1']:.2f} s, sharded "
+        f"{secs[f'load_{SPATIAL_SHARDS}']:.2f} s; rows a shard: stem {rec['rows']['stem']}, trunk output "
+        f"({trunk_out['name']}) {rec['rows']['trunk']}, conv_map {rec['rows']['conv_map']}; halo {halo} bytes a "
+        f"request over {len(records)} layers; median of requests 2-{SPATIAL_REQUESTS}: sharded "
+        f"{rec['sharded']:.2f} ms ({timing}) vs whole {rec['whole']:.2f} ms, first sharded {rec['first']:.2f} ms; "
+        f"sharded vs whole: {', '.join(f'{k} {v:.3e}' for k, v in gaps.items())}, conv_map feature {feat_gap:.3e} (its largest "
+        f"magnitude {feat_max:.3e})")
+    if kind == "int8" and (gaps["generated"] != 0 or feat_gap != 0):
+        raise AssertionError(f"spatial int8: sharded output not bit-equal to the whole one ({gaps}, feature "
+                             f"{feat_gap})")
+    if kind == "f32" and (gaps["generated"] > SPATIAL_F32_TOL or feat_gap > SPATIAL_F32_FEATURE_TOL * feat_max):
+        raise AssertionError(f"spatial f32: {gaps['generated']:.3e} from the whole artifact (limit "
+                             f"{SPATIAL_F32_TOL}), the feature {feat_gap:.3e} of {feat_max:.3e} (limit "
+                             f"{SPATIAL_F32_FEATURE_TOL} of it)")
+    if kind == "bf16" and gaps["generated"] > SPATIAL_BF16_TOL:
+        raise AssertionError(f"spatial bf16: {gaps['generated']:.3e} from the whole artifact, over "
+                             f"{SPATIAL_BF16_TOL}")
+    del models
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spatial_phase(counters: dict, root: Path) -> dict:
+    """Phase 19: the bf16, f32 and int8 generation artifacts at full width,
+    each whole and split over SPATIAL_SHARDS devices, held against each
+    other. Returns the launch counts over the sharded requests."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(counters, 0)
+    records = {kind: spatial_artifact(kind, counters, root, total) for kind in SPATIAL_KINDS}
+    log(f"spatial phase ({card()}): {time.perf_counter() - t0:.1f} s; " + json.dumps(records))
+    return total
+
+
 def kernels_only(group: str, package_root) -> int:
     """``--trunk-gemms`` (``matmul_stats``, ``qgemm_s8``) or ``--frontends``
     (``mfcc``, ``stft``): build the group's
@@ -5515,7 +5701,7 @@ def phase_only(which: str) -> int:
     log(f"{which} only: device {torch.cuda.get_device_name(0)}, seed {SEED}")
     names = {"classify": ("mfcc", "conv_chain", "sosfilt"), "embed_workflow": ("mfcc", "conv_chain", "stft"),
              "task_families": ("conv_chain", "stft"),
-             "serving": ("mfcc", "conv_chain", "stft"), "convert": ("mfcc",)}.get(
+             "serving": ("mfcc", "conv_chain", "stft"), "convert": ("mfcc",), "spatial": ("conv_chain",)}.get(
                  which, ("mfcc", "conv_chain", "qgemm_s8"))
     for name, (secs, text) in build.build(names).items():
         log(f"build {name}: {secs:.2f} s")
@@ -5530,6 +5716,12 @@ def phase_only(which: str) -> int:
     if which == "tensor_parallel":
         t0 = time.perf_counter()
         log(json.dumps({"tensor_parallel_launches": tensor_parallel_phase()}))
+        log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if which == "spatial":
+        t0 = time.perf_counter()
+        with scratch_dir() as root:
+            log(json.dumps({"spatial_launches": spatial_phase(counters, root)}))
         log(f"phase {which}: {time.perf_counter() - t0:.1f} s")
         return 0
     with scratch_dir() as root:
@@ -5587,6 +5779,9 @@ def main() -> int:
     only.add_argument("--tensor-parallel", action="store_const", const="tensor_parallel", dest="only",
                       help="only run phase 18: tensor parallelism of every task family, with the correspondence "
                            "augmentation, on (data, model) grids of ranks")
+    only.add_argument("--spatial", action="store_const", const="spatial", dest="only",
+                      help="only run phase 19: generation artifacts split over devices by image rows, held "
+                           "against the whole ones")
     only.add_argument("--serving", action="store_const", const="serving", dest="only",
                       help="only run phase 15: serving artifacts, HTTP, the artifact CLI, the box sweep, the "
                            "render step and optax's Adam")
@@ -5599,7 +5794,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if args.only in ("cached", "workflow", "classify", "embed_workflow", "task_families", "serving", "parallel",
-                     "convert", "tensor_parallel"):
+                     "convert", "tensor_parallel", "spatial"):
         return phase_only(args.only)
     if args.only:
         return kernels_only(args.only, args.package_root)
@@ -5758,6 +5953,11 @@ def main() -> int:
     tp = tensor_parallel_phase()
     torch.cuda.empty_cache()
     log(f"phase tensor parallel: {time.perf_counter() - phase:.1f} s")
+    phase = time.perf_counter()
+    with scratch_dir() as root:
+        spat = spatial_phase(every, root)
+    torch.cuda.empty_cache()
+    log(f"phase spatial: {time.perf_counter() - phase:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["workflow_launches"] = flow[k["name"]]
@@ -5767,15 +5967,16 @@ def main() -> int:
         k["parallel_launches"] = par.get(k["name"], 0)
         k["convert_launches"] = conv[k["name"]]
         k["tensor_parallel_launches"] = tp.get(k["name"], 0)
+        k["spatial_launches"] = spat[k["name"]]
 
     log(card())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's, 15's, 16's, 17's and 18's
-    # passes
+    # mfcc, stft: entry_times; every kernel: its launches over phase 11's, 13's, 14's, 15's, 16's, 17's, 18's and
+    # 19's passes
     extra = ("device_ms", "plain_device_ms", "library_device_ms", "host_us", "chain_ms", "clock_mhz",
              "workflow_launches", "embed_workflow_launches", "task_families_launches", "serving_launches",
-             "parallel_launches", "convert_launches", "tensor_parallel_launches")
+             "parallel_launches", "convert_launches", "tensor_parallel_launches", "spatial_launches")
     log(json.dumps({"kernels": [{k: item[k] for k in keys + extra if k in keys or k in item}
                                 for item in kernels]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -323,8 +323,8 @@ def test_export_rejects(case, tmp_path):
         with pytest.raises(ValueError, match="12-channel"):
             serving.export_generation(task, out, energy=True)
     elif case == "spatial_shards":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            serving.export_generation(task, out, spatial_shards=2)
+        with pytest.raises(ValueError, match="external_weights is incompatible with spatial_shards>1"):
+            serving.export_generation(task, out, spatial_shards=2, external_weights=True)
     else:
         with pytest.raises(ValueError, match="serves on cuda, cpu"):
             serving.export_generation(task, out, platforms=("tpu", "cpu"))
